@@ -1,0 +1,33 @@
+"""Argument checks shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,
+                      dtypes=SUPPORTED_DTYPES, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous tensor of an accepted type and
+    shape on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def current_stream_handle(device: torch.device) -> int:
+    if torch.cuda.current_device() != device.index:
+        raise ValueError(f"tensor on {device} but the current CUDA device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {rc}")

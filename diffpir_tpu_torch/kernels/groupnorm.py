@@ -1,0 +1,128 @@
+"""GroupNorm (fp32 statistics) + optional FiLM + optional SiLU on NHWC tensors.
+
+Port of the TPU kernel ``diffpir_tpu/pallas/groupnorm.py::groupnorm_silu``
+(defined at ``:73``, ``pl.pallas_call`` at ``:100``, body ``_kernel`` at
+``:33-68``) to the CUDA kernel in
+``csrc/groupnorm.cu``.  Both functions here compute what ``GroupNorm32``'s XLA
+path computes (``diffpir_tpu/models/unet.py:83-131``): per-group fp32 mean
+and variance over H*W*(C/G), eps 1e-5, the affine step, optional FiLM
+``y*(1+fs)+fb``, optional SiLU, output in the input's type.  fp32 inputs use
+the two-pass centred variance; bf16 inputs the one-pass E[x^2]-mean^2,
+clamped at 0.
+
+``groupnorm_silu`` runs the plain version for a CPU tensor and the CUDA kernel
+for a CUDA tensor; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from diffpir_tpu_torch.kernels import LAUNCHES
+from diffpir_tpu_torch.kernels._common import (check_cuda_tensor,
+                                               current_stream_handle,
+                                               raise_on_error)
+
+__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "partition_pixels"]
+
+MAX_GROUPS = 64       # csrc/groupnorm.cu kMaxGroups
+_TARGET_BLOCKS = 528  # ~4 partial-sum blocks per SM of a 132-SM card
+_MIN_SLICE = 64       # pixels per partial-sum block, at least
+
+
+def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                         film_scale: Optional[torch.Tensor] = None,
+                         film_shift: Optional[torch.Tensor] = None, *,
+                         num_groups: int = 32, eps: float = 1e-5,
+                         do_silu: bool = True) -> torch.Tensor:
+    """The same function in PyTorch operations, step for step as XLA's path."""
+    dtype = x.dtype
+    b, c = x.shape[0], x.shape[-1]
+    g = num_groups
+    spatial = tuple(range(1, x.ndim - 1))
+    bshape = (b,) + (1,) * (x.ndim - 2) + (c,)
+    n = float(math.prod(x.shape[1:-1]) * (c // g))
+    xf = x.float()
+    mean = xf.sum(dim=spatial).reshape(b, g, c // g).sum(-1) / n
+    if dtype == torch.float32:
+        mean_full = mean.repeat_interleave(c // g, dim=-1).reshape(bshape)
+        d2 = (xf - mean_full).square().sum(dim=spatial)
+        var = d2.reshape(b, g, c // g).sum(-1) / n
+    else:
+        gs2 = xf.square().sum(dim=spatial).reshape(b, g, c // g).sum(-1)
+        var = (gs2 / n - mean.square()).clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+    w = inv.repeat_interleave(c // g, dim=-1) * scale.float()[None]
+    off = bias.float()[None] - mean.repeat_interleave(c // g, dim=-1) * w
+    if film_scale is not None:
+        f = 1.0 + film_scale.float()
+        w = w * f
+        off = off * f + film_shift.float()
+    y = xf * w.reshape(bshape) + off.reshape(bshape)
+    if do_silu:
+        y = F.silu(y)
+    return y.to(dtype)
+
+
+def partition_pixels(batch: int, hw: int) -> tuple[int, int]:
+    """(slices, pixels per slice) for the partial-sum stage: enough blocks
+    to fill the card, at least ``_MIN_SLICE`` pixels each."""
+    want = max(1, -(-_TARGET_BLOCKS // batch))
+    slices = max(1, min(want, -(-hw // _MIN_SLICE)))
+    per = -(-hw // slices)
+    return -(-hw // per), per
+
+
+def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   film_scale: Optional[torch.Tensor] = None,
+                   film_shift: Optional[torch.Tensor] = None, *,
+                   num_groups: int = 32, eps: float = 1e-5,
+                   do_silu: bool = True) -> torch.Tensor:
+    """x: (B, H, W, C) -> GroupNorm(num_groups, fp32 stats) [*(1+fs)+fb] (+SiLU).
+
+    scale, bias: (C,) fp32; film_scale, film_shift: optional (B, C) fp32.
+    """
+    if x.device.type == "cpu":
+        return groupnorm_silu_plain(x, scale, bias, film_scale, film_shift,
+                                    num_groups=num_groups, eps=eps,
+                                    do_silu=do_silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
+    if x.ndim != 4:
+        raise ValueError(f"groupnorm_silu takes (B, H, W, C), got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if num_groups > MAX_GROUPS or c % num_groups:
+        raise ValueError(f"groupnorm_silu: C={c} with {num_groups} groups "
+                         f"(need C % G == 0 and G <= {MAX_GROUPS})")
+    if (film_scale is None) != (film_shift is None):
+        raise ValueError("film_scale and film_shift go together")
+    dev = x.device
+    check_cuda_tensor("x", x, dev)
+    f32 = (torch.float32,)
+    check_cuda_tensor("scale", scale, dev, f32, (c,))
+    check_cuda_tensor("bias", bias, dev, f32, (c,))
+    if film_scale is not None:
+        check_cuda_tensor("film_scale", film_scale, dev, f32, (b, c))
+        check_cuda_tensor("film_shift", film_shift, dev, f32, (b, c))
+
+    from diffpir_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    hw = h * w
+    slices, per = partition_pixels(b, hw)
+    ws = torch.empty(2 * b * slices * c + 2 * b * num_groups + 2 * b * c,
+                     dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    rc = lib.diffpir_groupnorm_silu(
+        x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        None if film_scale is None else film_scale.data_ptr(),
+        None if film_shift is None else film_shift.data_ptr(),
+        ws.data_ptr(), b, hw, c, num_groups, slices, per, eps, int(do_silu),
+        int(x.dtype == torch.bfloat16), current_stream_handle(dev))
+    raise_on_error("groupnorm_silu", rc)
+    LAUNCHES["groupnorm_silu"] += 1
+    return out

@@ -1,0 +1,64 @@
+"""Command-line entry point of the PyTorch port.
+
+    python -m diffpir_tpu_torch.main --opt configs/demo64_inpaint.yaml --no-sweep \
+        [--set key=value ...] [--cpu] [--json]
+
+Runs on the CUDA card unless ``--cpu`` is given, and refuses to start when
+there is no card and ``--cpu`` was not asked for.  ``main(argv)`` can be
+called in-process and returns the list of result dicts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--opt", type=str, required=True, help="Path to option YAML file.")
+    p.add_argument("--no-sweep", action="store_true",
+                   help="run only the configured (lambda, zeta); for "
+                        "inpainting the reference's sweep is that one point")
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="config override (repeatable); VALUE is parsed as JSON "
+                        "when it can be")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--json", action="store_true", help="print results as JSON")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> list[dict]:
+    args = parse_args(argv)
+    from diffpir_tpu_torch import resolve_device
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.runner import Runner
+
+    device = resolve_device(args.cpu)
+    overrides = {}
+    for kv in args.set:
+        k, _, v = kv.partition("=")
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        overrides[k] = v
+    cfg = load_config(args.opt, overrides)
+
+    if cfg.save_E or cfg.save_L:
+        os.makedirs(cfg.E_path, exist_ok=True)
+        shutil.copyfile(args.opt, os.path.join(cfg.E_path, "config.yaml"))
+
+    results = [Runner(cfg, device=device).evaluate()]
+    if args.json:
+        json.dump(results, sys.stdout, indent=2, default=float)
+        print()
+    return results
+
+
+if __name__ == "__main__":
+    main()

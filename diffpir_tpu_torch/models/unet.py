@@ -1,0 +1,309 @@
+"""The guided-diffusion UNet in PyTorch, NHWC at every block boundary.
+
+Port of ``diffpir_tpu/models/unet.py`` (reference
+``guided_diffusion/unet.py:396-663``).  Module names follow the JAX package's
+block names (``input_blocks_{i}_{j}``, ``middle_block_{k}``,
+``output_blocks_{i}_{j}``, ``norm1/conv1/emb_proj/norm2/conv2/skip``,
+``norm/qkv/proj``), so ``models.zoo.flax_to_torch`` maps its weights by name.
+Numerics carried over:
+
+* GroupNorm statistics in fp32, eps 1e-5; fp32 activations take the two-pass
+  centred variance, bf16 the one-pass form clamped at 0 (``kernels.groupnorm``).
+* FiLM ``h = norm(h) * (1 + scale) + shift`` with scale the FIRST half of the
+  projection; ``emb_out`` is cast to the activation type first.
+* Legacy QKV attention, layout [head][q|k|v][ch], q and k both scaled by
+  ch^-1/4, softmax in fp32 (``kernels.attention``).
+* Sinusoidal timestep embedding with cos first.
+* The output head runs in the compute dtype.
+
+Activations are (B, H, W, C) tensors, contiguous in that order, which is what
+the GroupNorm and attention kernels take.  A convolution hands cuDNN the
+NCHW view of the same memory (``channels_last``) with a ``channels_last``
+weight, so no layout copy is made.  ``kernels="cuda"`` (the default) routes
+every GroupNorm and attention through ``diffpir_tpu_torch.kernels``, which
+launch the CUDA kernels for tensors on the card and run their plain versions
+on the CPU; ``kernels="plain"`` calls the plain versions on any device, for
+comparing the two on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffpir_tpu_torch.kernels.attention import (legacy_qkv_attention,
+                                                 legacy_qkv_attention_plain)
+from diffpir_tpu_torch.kernels.groupnorm import (groupnorm_silu,
+                                                 groupnorm_silu_plain)
+
+__all__ = ["UNetConfig", "UNet", "GroupNorm32", "ResBlock", "AttentionBlock",
+           "timestep_embedding", "KERNEL_ROUTES"]
+
+KERNEL_ROUTES = ("cuda", "plain")
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embeddings, [cos|sin] concat order (reference ``nn.py:103-121``)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def _check_route(kernels: str) -> str:
+    if kernels not in KERNEL_ROUTES:
+        raise ValueError(f"kernels must be one of {KERNEL_ROUTES}, got {kernels!r}")
+    return kernels
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm(32) in fp32 whatever the activation type, with optional FiLM
+    and SiLU (reference ``nn.py:17-19, 93-100``)."""
+
+    def __init__(self, channels: int, fuse_silu: bool = False,
+                 kernels: str = "cuda", num_groups: int = 32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.fuse_silu = fuse_silu
+        self.num_groups = num_groups
+        self.kernels = _check_route(kernels)
+
+    def forward(self, x: torch.Tensor,
+                film: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        fs = fb = None
+        if film is not None:
+            fs, fb = (f.float().contiguous() for f in film)
+        fn = groupnorm_silu if self.kernels == "cuda" else groupnorm_silu_plain
+        return fn(x.contiguous(), self.weight, self.bias, fs, fb,
+                  num_groups=self.num_groups, do_silu=self.fuse_silu)
+
+
+class Conv(nn.Module):
+    """2-D convolution on NHWC activations (weight OIHW, stored channels_last)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        w = torch.empty(cout, cin, kernel, kernel)
+        self.weight = nn.Parameter(w.contiguous(memory_format=torch.channels_last))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.stride = stride
+        self.padding = kernel // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling (reference ``unet.py:100-110``)."""
+    b, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return x.reshape(b, h * 2, w * 2, c)
+
+
+def _avgpool2x(x: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+class ResBlock(nn.Module):
+    """Residual block with FiLM conditioning and optional up/down sampling
+    (reference ``unet.py:143-256``)."""
+
+    def __init__(self, cin: int, cout: int, emb_dim: int, *,
+                 use_scale_shift_norm: bool = True, up: bool = False,
+                 down: bool = False, kernels: str = "cuda"):
+        super().__init__()
+        self.up, self.down = up, down
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.norm1 = GroupNorm32(cin, fuse_silu=True, kernels=kernels)
+        self.conv1 = Conv(cin, cout)
+        self.emb_proj = nn.Linear(emb_dim, 2 * cout if use_scale_shift_norm else cout)
+        self.norm2 = GroupNorm32(cout, fuse_silu=True, kernels=kernels)
+        self.conv2 = Conv(cout, cout)
+        self.skip = Conv(cin, cout, 1) if cin != cout else None
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(x)
+        if self.up:
+            h, x = _upsample2x(h), _upsample2x(x)
+        elif self.down:
+            h, x = _avgpool2x(h), _avgpool2x(x)
+        h = self.conv1(h)
+        emb_out = self.emb_proj(F.silu(emb)).to(h.dtype)
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = self.norm2(h, film=(scale, shift))
+        else:
+            h = self.norm2(h + emb_out[:, None, None, :])
+        h = self.conv2(h)
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+class AttentionBlock(nn.Module):
+    """Global self-attention over spatial positions (reference ``unet.py:259-305``)."""
+
+    def __init__(self, channels: int, num_heads: int, kernels: str = "cuda"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.kernels = _check_route(kernels)
+        self.norm = GroupNorm32(channels, kernels=kernels)
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.proj = nn.Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hh, ww, c = x.shape
+        h = self.norm(x).reshape(b, hh * ww, c)
+        qkv = self.qkv(h).contiguous()
+        attn = (legacy_qkv_attention if self.kernels == "cuda"
+                else legacy_qkv_attention_plain)
+        a = self.proj(attn(qkv, self.num_heads))
+        return x + a.reshape(b, hh, ww, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Static architecture description (reference ``script_util.py:130-185`` defaults)."""
+
+    image_size: int = 256
+    in_channels: int = 3
+    model_channels: int = 128
+    out_channels: int = 6              # learn_sigma=True -> 6 (eps + var)
+    num_res_blocks: int = 1
+    attention_resolutions: Tuple[int, ...] = (16,)   # downsample rates with attention
+    channel_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4)
+    num_heads: int = 4
+    num_head_channels: int = 64
+    num_classes: Optional[int] = None
+    dropout: float = 0.0
+    use_scale_shift_norm: bool = True
+    resblock_updown: bool = True
+    conv_resample: bool = True
+
+    def heads_for(self, ch: int) -> int:
+        if self.num_head_channels == -1:
+            return self.num_heads
+        if ch % self.num_head_channels:
+            raise ValueError(f"{ch} channels do not split into heads of "
+                             f"{self.num_head_channels}")
+        return ch // self.num_head_channels
+
+
+class UNet(nn.Module):
+    """guided-diffusion UNet on NHWC tensors.
+
+    forward(x: (B,H,W,C) in [-1,1], t: (B,) integer base timesteps)
+    -> (B,H,W,out_channels) in the compute dtype.
+
+    Convolution and dense weights are stored in the compute dtype (the JAX
+    package casts its fp32 parameters to it at each call); GroupNorm
+    parameters stay fp32.
+    """
+
+    def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
+                 kernels: str = "cuda"):
+        super().__init__()
+        if cfg.num_classes is not None or not cfg.resblock_updown:
+            raise NotImplementedError(
+                "class-conditional UNets and resblock_updown=False are not "
+                "ported yet (ROADMAP.md queue A)")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.kernels = _check_route(kernels)
+        mc = cfg.model_channels
+        time_dim = mc * 4
+        self.time_embed_0 = nn.Linear(mc, time_dim)
+        self.time_embed_2 = nn.Linear(time_dim, time_dim)
+
+        def res(name, cin, cout, **kw):
+            setattr(self, name, ResBlock(
+                cin, cout, time_dim, use_scale_shift_norm=cfg.use_scale_shift_norm,
+                kernels=kernels, **kw))
+            return name
+
+        def attn(name, ch):
+            setattr(self, name, AttentionBlock(ch, cfg.heads_for(ch), kernels))
+            return name
+
+        ch = int(cfg.channel_mult[0] * mc)
+        self.input_blocks_0_0 = Conv(cfg.in_channels, ch)
+        # each entry: the layers of one block, applied in order
+        self._inputs: list[list[str]] = [["input_blocks_0_0"]]
+        skip_chans = [ch]
+        ds, idx = 1, 1
+        for level, mult in enumerate(cfg.channel_mult):
+            for _ in range(cfg.num_res_blocks):
+                cout = int(mult * mc)
+                names = [res(f"input_blocks_{idx}_0", ch, cout)]
+                ch = cout
+                if ds in cfg.attention_resolutions:
+                    names.append(attn(f"input_blocks_{idx}_1", ch))
+                self._inputs.append(names)
+                skip_chans.append(ch)
+                idx += 1
+            if level != len(cfg.channel_mult) - 1:
+                self._inputs.append([res(f"input_blocks_{idx}_0", ch, ch, down=True)])
+                skip_chans.append(ch)
+                ds *= 2
+                idx += 1
+
+        self._middle = [res("middle_block_0", ch, ch), attn("middle_block_1", ch),
+                        res("middle_block_2", ch, ch)]
+
+        self._outputs: list[list[str]] = []
+        idx = 0
+        for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+            for i in range(cfg.num_res_blocks + 1):
+                cout = int(mc * mult)
+                names = [res(f"output_blocks_{idx}_0", ch + skip_chans.pop(), cout)]
+                ch = cout
+                j = 1
+                if ds in cfg.attention_resolutions:
+                    names.append(attn(f"output_blocks_{idx}_1", ch))
+                    j = 2
+                if level and i == cfg.num_res_blocks:
+                    names.append(res(f"output_blocks_{idx}_{j}", ch, ch, up=True))
+                    ds //= 2
+                self._outputs.append(names)
+                idx += 1
+
+        self.out_norm = GroupNorm32(ch, fuse_silu=True, kernels=kernels)
+        self.out_conv = Conv(ch, cfg.out_channels)
+        for m in self.modules():
+            if isinstance(m, (Conv, nn.Linear)):
+                m.to(dtype)
+
+    def _layer(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        layer = getattr(self, name)
+        return layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        emb = timestep_embedding(t, self.cfg.model_channels).to(self.dtype)
+        emb = self.time_embed_2(F.silu(self.time_embed_0(emb)))
+        h = x.to(self.dtype)
+        hs = []
+        for names in self._inputs:
+            for name in names:
+                h = self._layer(name, h, emb)
+            hs.append(h)
+        for name in self._middle:
+            h = self._layer(name, h, emb)
+        for names in self._outputs:
+            h = torch.cat([h, hs.pop()], dim=-1)
+            for name in names:
+                h = self._layer(name, h, emb)
+        return self.out_conv(self.out_norm(h))

@@ -1,0 +1,174 @@
+"""Model zoo: UNet configurations by name, and weights for them.
+
+Port of ``diffpir_tpu/models/zoo.py``.  Weights come from the JAX package's
+flat ``.flax.npz`` files (``<model_zoo>/<name>.flax.npz``, then
+``assets/demo/<name>.flax.npz``) and are carried into a PyTorch state dict in
+memory by ``flax_to_torch``; no converted copy is written anywhere.  A model
+with no weights file gets seeded random weights (``init_random_``), with a
+warning.  Guided-diffusion ``.pt`` checkpoints are not read yet (ROADMAP.md
+queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from diffpir_tpu_torch.models.unet import UNet, UNetConfig
+
+__all__ = ["MODEL_ZOO_CONFIGS", "TINY_TEST_CONFIG", "DEMO_HQ_CONFIG",
+           "DEMO256_CONFIG", "TINY_GRAY_CONFIG", "model_config_for",
+           "load_params_npz", "flax_to_torch", "init_random_", "resolve_model",
+           "ResolvedModel"]
+
+log = logging.getLogger(__name__)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# Hard-coded per-checkpoint configs (reference ``main_ddpir.py:219-230``).
+MODEL_ZOO_CONFIGS = {
+    "diffusion_ffhq_10m": UNetConfig(
+        model_channels=128, num_res_blocks=1, attention_resolutions=(16,), dropout=0.1
+    ),
+    "256x256_diffusion_uncond": UNetConfig(
+        model_channels=256, num_res_blocks=2, attention_resolutions=(8, 16, 32), dropout=0.0
+    ),
+}
+
+# Tiny fixture model for tests and smoke runs without checkpoints.
+TINY_TEST_CONFIG = UNetConfig(
+    image_size=64, model_channels=32, out_channels=6, num_res_blocks=1,
+    attention_resolutions=(8,), channel_mult=(1, 1, 2, 2), num_heads=4,
+    num_head_channels=16, dropout=0.0,
+)
+
+# Wider demo prior (~29M params) of the demo64 tasks.
+DEMO_HQ_CONFIG = UNetConfig(
+    image_size=64, model_channels=128, out_channels=6, num_res_blocks=2,
+    attention_resolutions=(8,), channel_mult=(1, 2, 2), num_heads=4,
+    num_head_channels=32, dropout=0.0,
+)
+
+# 256-px demo prior (~54M params): the ffhq flagship topology (6-level
+# channel_mult, attention at ds16 and in the ds32 middle block, 64-channel
+# heads) at 96 instead of 128 base channels.
+DEMO256_CONFIG = UNetConfig(
+    image_size=256, model_channels=96, out_channels=6, num_res_blocks=1,
+    attention_resolutions=(16,), channel_mult=(1, 1, 2, 2, 4, 4), num_heads=4,
+    num_head_channels=64, dropout=0.0,
+)
+
+TINY_GRAY_CONFIG = dataclasses.replace(TINY_TEST_CONFIG, in_channels=1,
+                                       out_channels=2)
+
+_DEMO_CONFIGS = {"demo64_hq": DEMO_HQ_CONFIG, "demo256": DEMO256_CONFIG,
+                 "tiny_gray": TINY_GRAY_CONFIG}
+
+
+def model_config_for(model_name: str) -> UNetConfig:
+    if model_name in MODEL_ZOO_CONFIGS:
+        return MODEL_ZOO_CONFIGS[model_name]
+    if model_name in _DEMO_CONFIGS:
+        return _DEMO_CONFIGS[model_name]
+    for k, c in _DEMO_CONFIGS.items():
+        # checkpoint variants of a demo architecture share its config
+        if model_name.startswith(k):
+            return c
+    if model_name.startswith("tiny"):
+        return TINY_TEST_CONFIG
+    raise KeyError(f"unknown model {model_name!r}; known: "
+                   f"{sorted(MODEL_ZOO_CONFIGS) + sorted(_DEMO_CONFIGS) + ['tiny*']}")
+
+
+def load_params_npz(path: str) -> Dict[str, np.ndarray]:
+    """Flat ``{"a/b/leaf": array}`` parameters of a JAX-package npz; float
+    storage below fp32 (the demo priors ship fp16) is upcast to fp32."""
+    with np.load(path) as z:
+        flat = {}
+        for k in z.files:
+            v = z[k]
+            if v.dtype.kind == "f" and v.dtype.itemsize < 4:
+                v = v.astype(np.float32)
+            flat[k] = v
+        return flat
+
+
+def flax_to_torch(flat_params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX-package parameters -> a state dict of the port's ``UNet``.
+
+    conv kernel HWIO -> weight OIHW; dense kernel (in, out) -> weight
+    (out, in); GroupNorm scale -> weight; biases as they are.  Module paths
+    keep their names, ``/`` becoming ``.``.
+    """
+    sd = {}
+    for key, v in flat_params.items():
+        *path, leaf = key.split("/")
+        v = np.asarray(v, np.float32)
+        if leaf == "kernel" and v.ndim == 4:
+            v = v.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and v.ndim == 2:
+            v = v.T
+        elif leaf not in ("scale", "bias"):
+            raise KeyError(f"unexpected parameter {key!r}")
+        name = "bias" if leaf == "bias" else "weight"
+        sd[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(v))
+    return sd
+
+
+def init_random_(model: UNet, seed: int) -> UNet:
+    """Seeded random weights: every conv and dense weight ~ N(0, 1/fan_in),
+    biases 0, GroupNorm scale 1 and shift 0.  Unlike a training init, no
+    layer is zero-initialised, so every layer reaches the output."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = int(np.prod(p.shape[1:]))
+                w = torch.randn(p.shape, generator=gen) / np.sqrt(fan_in)
+                p.copy_(w)
+    return model
+
+
+class ResolvedModel(NamedTuple):
+    """The model, ready on its device, and where its weights came from:
+    "cache" (``<model_zoo>/<name>.flax.npz``), "demo" (a prior under
+    ``assets/demo``) or "random"."""
+
+    model: UNet
+    provenance: str
+
+
+def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
+                  dtype: torch.dtype = torch.float32,
+                  device: torch.device | str = "cpu", kernels: str = "cuda",
+                  init_seed: int = 0) -> ResolvedModel:
+    cfg = model_config_for(model_name)
+    model = UNet(cfg, dtype=dtype, kernels=kernels)
+    candidates = [(os.path.join(model_zoo, f"{model_name}.flax.npz"), "cache"),
+                  (os.path.join(_REPO, "assets", "demo", f"{model_name}.flax.npz"),
+                   "demo")]
+    for path, provenance in candidates:
+        if os.path.exists(path):
+            model.load_state_dict(flax_to_torch(load_params_npz(path)))
+            break
+    else:
+        pt_path = os.path.join(model_zoo, f"{model_name}.pt")
+        if os.path.exists(pt_path):
+            raise NotImplementedError(
+                f"{pt_path}: guided-diffusion .pt checkpoints are not read by "
+                "the port yet; convert it with the JAX package first")
+        log.warning("no weights for %r under %s or assets/demo — using RANDOM "
+                    "weights (restorations will be meaningless)", model_name,
+                    model_zoo)
+        init_random_(model, init_seed)
+        provenance = "random"
+    return ResolvedModel(model.to(device).eval(), provenance)
