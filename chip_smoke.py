@@ -2,16 +2,27 @@
 """Smoke test of the PyTorch port (``diffpir_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Phases, each announced by a flushed ``phase <name> start`` line and closed by
 ``phase <name> done <seconds>s``:
 
   preflight  versions, nvcc, the card; the port imports no JAX, Flax, PyYAML,
              Pillow or diffpir_tpu; fp32 convolutions and matmuls in full fp32
-  build      nvcc builds the kernels from diffpir_tpu_torch/kernels/csrc
+  build      nvcc builds the kernels from diffpir_tpu_torch/kernels/csrc;
+             ptxas must report no spills
   kernels    every CUDA kernel against its plain PyTorch version on the card,
-             at every shape the two paths below give it, in fp32 and bf16;
-             kernel, plain and library-call times
+             at every shape three paths give it: demo64 and DEMO256 (below)
+             in fp32 and bf16, and the diffusion_ffhq_10m topology (bf16,
+             batch 16, 256 px, seeded random weights: bench.py's workload) in
+             bf16 alone, since its fp32 copies of the 0.5 GB cases would
+             double the phase.  Each case is run twice and must repeat bit
+             for bit; the fp32 high-mean, low-variance GroupNorm input is held
+             to the plain version at 1e-3.  Kernel, plain and library-call
+             times in two columns: "device", 20 calls captured in a CUDA
+             graph and replayed between CUDA events (no host dispatch), and
+             "dispatch", 20 back-to-back Python calls between CUDA events
+             (the wrapper's host cost included where it exceeds the card's)
   main       the CLI path, ``diffpir_tpu_torch.main.main`` on
              configs/demo64_inpaint.yaml (trained demo64_hq prior, fp32, 4
              images, 50 NFE): PSNR against the JAX package's, launch counts,
@@ -24,6 +35,11 @@ Any failure prints its traceback and exits non-zero with no result line.  On
 success the last lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Nothing is written
 outside ``.kernel_build/``.
+
+``--kernels-only`` stops after phase ``kernels`` and prints the per-forward
+sums as JSON (no result line); ``--package-root DIR`` takes the port's
+package, and its kernels, from the checkout at DIR (for example an unpacked
+parent commit), so that two versions can be timed on one card in turns.
 """
 
 from __future__ import annotations
@@ -86,7 +102,9 @@ def phase(name: str):
 
 
 def timed_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters`` calls."""
+    """Dispatch time: mean time of ``fn`` in ms, by CUDA events around
+    ``iters`` back-to-back calls (host dispatch included where it is longer
+    than the card's work)."""
     import torch
 
     for _ in range(3):
@@ -100,6 +118,47 @@ def timed_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Device time: mean time of ``fn`` in ms, with ``iters`` calls captured
+    in one CUDA graph and replayed ``replays`` times between CUDA events.
+    A capture that fails raises."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    # warm-up on the stream that then captures, off the capture, as CUDA graphs
+    # ask: it also makes the GroupNorm wrapper's counters for that stream
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def time_all(**fns) -> dict:
+    """Device and dispatch times of each named function: ``<name>_ms`` and
+    ``<name>_dispatch_ms`` ("kernel" is written ``ms`` and ``dispatch_ms``)."""
+    out = {}
+    for name, fn in fns.items():
+        pre = "" if name == "kernel" else name + "_"
+        out[pre + "ms"] = graph_ms(fn)
+        out[pre + "dispatch_ms"] = timed_ms(fn)
+    return out
 
 
 def max_violation(got, ref, atol: float, rtol: float) -> tuple[float, bool]:
@@ -183,15 +242,38 @@ def gn_case(shape, dtype_name, film, silu, gen):
             y = y * (1.0 + fs.to(dtype)[:, :, None, None]) + fb.to(dtype)[:, :, None, None]
         return F.silu(y) if silu else y
 
-    out, ref = kern(), plain()
+    out, ref, again = kern(), plain(), kern()
     torch.cuda.synchronize()
     err, ok = max_violation(out, ref, **TOL[("groupnorm_silu", dtype_name)])
     n = x.numel()
     nbytes = 2 * n * x.element_size() + (2 * c + (2 * b * c if film else 0)) * 4
     flops = n * (4 + (2 if film else 0) + (4 if silu else 0))
-    return dict(err=err, ok=ok, ms=timed_ms(kern), plain_ms=timed_ms(plain),
-                library_ms=timed_ms(library), bytes=nbytes, flops=flops,
-                dtype=dtype_name)
+    return dict(err=err, ok=ok, repeats=torch.equal(out, again), bytes=nbytes,
+                flops=flops, dtype=dtype_name,
+                **time_all(kernel=kern, plain=plain, library=library))
+
+
+def gn_high_mean_case(gen):
+    """fp32, |mean| >> std (tests/test_torch_groupnorm.py's recipe, x*0.03+100)
+    at a card shape: kernel against plain version (atol 1e-3, that test's
+    tolerance), and both against fp64 statistics."""
+    import torch
+
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+
+    dev = torch.device("cuda")
+    x = torch.randn((4, 64, 64, 384), generator=gen, device=dev) * 0.03 + 100.0
+    ones = torch.ones(384, device=dev)
+    zeros = torch.zeros(384, device=dev)
+    out = kgn.groupnorm_silu(x, ones, zeros, do_silu=False)
+    ref = kgn.groupnorm_silu_plain(x, ones, zeros, do_silu=False)
+    x64 = x.double().reshape(4, 64, 64, 32, 12)
+    mu = x64.mean(dim=(1, 2, 4), keepdim=True)
+    var = (x64 - mu).square().mean(dim=(1, 2, 4), keepdim=True)
+    exact = ((x64 - mu) / torch.sqrt(var + 1e-5)).reshape(x.shape)
+    err, ok = max_violation(out, ref, atol=1e-3, rtol=0.0)
+    return dict(err=err, ok=ok, kernel_exact=float((out.double() - exact).abs().max()),
+                plain_exact=float((ref.double() - exact).abs().max()))
 
 
 def attn_case(b, t, heads, ch, dtype_name, gen):
@@ -209,16 +291,16 @@ def attn_case(b, t, heads, ch, dtype_name, gen):
     # once, outside the timing
     q, k, v = qkv.reshape(b, t, heads, 3, ch).permute(3, 0, 2, 1, 4).contiguous()
     library = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0 / math.sqrt(ch))
-    out, ref = kern(), plain()
+    out, ref, again = kern(), plain(), kern()
     torch.cuda.synchronize()
     err, ok = max_violation(out, ref, **TOL[("legacy_qkv_attention", dtype_name)])
     lib_err = float((library().permute(0, 2, 1, 3).reshape(b, t, heads * ch).float()
                      - ref.float()).abs().max())
     nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
     flops = 4 * b * heads * t * t * ch
-    return dict(err=err, ok=ok, ms=timed_ms(kern), plain_ms=timed_ms(plain),
-                library_ms=timed_ms(library), bytes=nbytes, flops=flops,
-                dtype=dtype_name, library_err=lib_err)
+    return dict(err=err, ok=ok, repeats=torch.equal(out, again), bytes=nbytes,
+                flops=flops, dtype=dtype_name, library_err=lib_err,
+                **time_all(kernel=kern, plain=plain, library=library))
 
 
 def bound(case) -> tuple[float, str]:
@@ -229,19 +311,27 @@ def bound(case) -> tuple[float, str]:
 
 # ---------------------------------------------------------------------------
 
-def run() -> int:
+def run(argv: list[str]) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="smoke test of the port on one CUDA card")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase kernels; print its per-forward sums")
+    ap.add_argument("--package-root", default=REPO,
+                    help="checkout whose diffpir_tpu_torch (and kernels) to run")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.package_root)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "diffpir_tpu_torch")):
-        print(f"chip_smoke: no diffpir_tpu_torch package beside {__file__}",
+    if not os.path.isdir(os.path.join(root, "diffpir_tpu_torch")):
+        print(f"chip_smoke: no diffpir_tpu_torch package in {root}",
               file=sys.stderr, flush=True)
         return 2
     os.chdir(REPO)
-    if REPO not in sys.path:
-        sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
     dev = torch.device("cuda")
 
     with phase("preflight"):
@@ -259,6 +349,7 @@ def run() -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        log(f"package {diffpir_tpu_torch.__file__}")
         log(f"torch {torch.__version__} cuda {torch.version.cuda} | nvcc {nvcc} "
             f"({nvcc_version.strip().splitlines()[-1]}) | {card} | "
             f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -272,6 +363,10 @@ def run() -> int:
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas: " + line.strip())
+        # another checkout's spills (--package-root) are not under test
+        if root == REPO and build.spill_bytes(info.log):
+            raise AssertionError(f"ptxas reports {build.spill_bytes(info.log)} bytes "
+                                 "of spills")
 
     from diffpir_tpu_torch import sampler
     from diffpir_tpu_torch.config import load_config
@@ -299,41 +394,67 @@ def run() -> int:
         calls256 = record_kernel_calls(
             flag, torch.randn((4, 256, 256, 3), generator=gen, device=dev), t_probe)
         del flag
-        for name, calls in (("demo64", calls64), ("demo256", calls256)):
+        ffhq = zoo.init_random_(UNet(zoo.MODEL_ZOO_CONFIGS["diffusion_ffhq_10m"],
+                                     dtype=torch.bfloat16, kernels="plain"),
+                                0).to(dev).eval()
+        callsffhq = record_kernel_calls(
+            ffhq, torch.randn((16, 256, 256, 3), generator=gen, device=dev),
+            t_probe.repeat(4))
+        del ffhq
+        torch.cuda.empty_cache()
+        paths = (("demo64", calls64), ("demo256", calls256), ("ffhq b16", callsffhq))
+        for name, calls in paths:
             log(f"{name}: {sum(c[0] == 'gn' for c in calls)} GroupNorm and "
                 f"{sum(c[0] == 'attn' for c in calls)} attention calls per forward")
 
         gn_keys, attn_keys = set(), set()
-        for c in calls64 + calls256:
-            if c[0] == "gn":
-                for dt in ("float32", "bfloat16"):
-                    gn_keys.add((c[1], dt, c[3], c[4]))
-            else:
-                for dt in ("float32", "bfloat16"):
-                    attn_keys.add((c[1], c[2], c[3], c[4], dt))
+        for calls, dtypes in ((calls64 + calls256, ("float32", "bfloat16")),
+                              (callsffhq, ("bfloat16",))):
+            for c in calls:
+                for dt in dtypes:
+                    if c[0] == "gn":
+                        gn_keys.add((c[1], dt, c[3], c[4]))
+                    else:
+                        attn_keys.add((c[1], c[2], c[3], c[4], dt))
         for dt in ("float32", "bfloat16"):
             attn_keys.add((4, 1024, 8, 64, dt))  # 256x256_diffusion_uncond at ds8
+
+        def columns(r):
+            return " ".join(f"{k}={r[k]:.4f}" for k in (
+                "ms", "dispatch_ms", "plain_ms", "plain_dispatch_ms", "library_ms",
+                "library_dispatch_ms"))
 
         results, failures = {}, []
         for key in sorted(gn_keys):
             r = results[("gn",) + key] = gn_case(*key, gen)
             log(f"groupnorm_silu shape={key[0]} {key[1]} film={key[2]} silu={key[3]}: "
-                f"max_abs_err={r['err']:.3e} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={r['library_ms']:.4f} bound_ms={bound(r)[0]:.4f}"
-                + ("" if r["ok"] else "  FAIL"))
-            if not r["ok"]:
+                f"max_abs_err={r['err']:.3e} repeats={r['repeats']} {columns(r)} "
+                f"bound_ms={bound(r)[0]:.4f}"
+                + ("" if r["ok"] and r["repeats"] else "  FAIL"))
+            if not (r["ok"] and r["repeats"]):
                 failures.append(("groupnorm_silu",) + key)
         for key in sorted(attn_keys):
             r = results[("attn",) + key] = attn_case(*key, gen)
             log(f"legacy_qkv_attention B={key[0]} T={key[1]} heads={key[2]} ch={key[3]} "
-                f"{key[4]}: max_abs_err={r['err']:.3e} ms={r['ms']:.4f} "
-                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                f"(library err {r['library_err']:.2e}) bound_ms={bound(r)[0]:.4f}"
-                + ("" if r["ok"] else "  FAIL"))
-            if not r["ok"]:
+                f"{key[4]}: max_abs_err={r['err']:.3e} repeats={r['repeats']} "
+                f"{columns(r)} (library err {r['library_err']:.2e}) "
+                f"bound_ms={bound(r)[0]:.4f}"
+                + ("" if r["ok"] and r["repeats"] else "  FAIL"))
+            if not (r["ok"] and r["repeats"]):
                 failures.append(("legacy_qkv_attention",) + key)
+        hm = gn_high_mean_case(gen)
+        log(f"groupnorm_silu high mean (4, 64, 64, 384) float32 x*0.03+100: |kernel - "
+            f"plain| {hm['err']:.3e} (atol 1e-3); against fp64 statistics: kernel "
+            f"{hm['kernel_exact']:.3e}, plain {hm['plain_exact']:.3e}"
+            + ("" if hm["ok"] else "  FAIL"))
+        if not hm["ok"]:
+            failures.append(("groupnorm_silu", "high mean"))
         if failures:
-            raise AssertionError(f"kernels disagree with their plain versions: {failures}")
+            raise AssertionError(f"kernels disagree with their plain versions or do "
+                                 f"not repeat: {failures}")
+
+        timed = ("ms", "dispatch_ms", "plain_ms", "plain_dispatch_ms", "library_ms",
+                 "library_dispatch_ms")
 
         def per_forward(calls, kind):
             """Sums over the calls of one forward (times, bound, errors)."""
@@ -343,7 +464,7 @@ def run() -> int:
                     continue
                 rows.append(results[("gn", c[1], c[2], c[3], c[4]) if kind == "gn"
                                     else ("attn",) + c[1:]])
-            tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms")}
+            tot = {k: sum(r[k] for r in rows) for k in timed}
             tot["bound_ms"] = sum(bound(r)[0] for r in rows)
             by = [bound(r)[1] for r in rows]
             tot["bound_by"] = max(set(by), key=by.count)
@@ -352,16 +473,23 @@ def run() -> int:
             return tot
 
         per_fwd = {(path, kind): per_forward(calls, kind)
-                   for path, calls in (("demo64", calls64), ("demo256", calls256))
-                   for kind in ("gn", "attn")}
+                   for path, calls in paths for kind in ("gn", "attn")}
         for (path, kind), tot in per_fwd.items():
             log(f"per forward {path} {kind}: {tot['calls']} calls, kernel "
-                f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
-                f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-                f"({tot['bound_by']})")
+                f"{tot['ms']:.4f} ms device / {tot['dispatch_ms']:.4f} ms dispatch, "
+                f"plain {tot['plain_ms']:.4f} / {tot['plain_dispatch_ms']:.4f} ms, "
+                f"library {tot['library_ms']:.4f} / {tot['library_dispatch_ms']:.4f} ms, "
+                f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
         log("kernels: groupnorm_silu (diffpir_tpu_torch/kernels/csrc/groupnorm.cu), "
             "legacy_qkv_attention (diffpir_tpu_torch/kernels/csrc/attention.cu): "
-            f"{len(gn_keys)} + {len(attn_keys)} cases agree")
+            f"{len(gn_keys)} + {len(attn_keys)} cases agree and repeat bit for bit")
+
+    if args.kernels_only:
+        log(json.dumps({"package": root, "card": card, "per_forward": {
+            f"{path} {kind}": tot for (path, kind), tot in per_fwd.items()},
+            "cases": {" ".join(map(str, k)): {f: r[f] for f in timed}
+                      for k, r in results.items()}}))
+        return 0
 
     with phase("main"):
         opt = "configs/demo64_inpaint.yaml"
@@ -483,9 +611,15 @@ def run() -> int:
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
+            "dispatch_ms": tot["dispatch_ms"],
+            "plain_dispatch_ms": tot["plain_dispatch_ms"],
+            "library_dispatch_ms": tot["library_dispatch_ms"],
             "basis": "sum over the calls of one UNet forward of the main path "
-                     "(demo64_hq, fp32, batch 4, 64 px)",
-            "flagship_per_forward": per_fwd[("demo256", kind)]})
+                     "(demo64_hq, fp32, batch 4, 64 px); ms, plain_ms, library_ms "
+                     "by CUDA-graph replay (device), *_dispatch_ms by back-to-back "
+                     "calls",
+            "flagship_per_forward": per_fwd[("demo256", kind)],
+            "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)]})
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -496,7 +630,7 @@ def run() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = run()
+        rc = run(sys.argv[1:])
     except BaseException:  # report any failure, then leave with a non-zero code
         traceback.print_exc()
         rc = 1

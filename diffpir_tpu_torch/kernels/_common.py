@@ -21,6 +21,14 @@ def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned(name: str, t: torch.Tensor, alignment: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``alignment``-byte boundary (the
+    kernels read and write 16-byte vectors); an offset view can fail this."""
+    if t.data_ptr() % alignment:
+        raise ValueError(f"{name} must start on a {alignment}-byte boundary "
+                         f"(storage offset {t.storage_offset()} elements)")
+
+
 def current_stream_handle(device: torch.device) -> int:
     if torch.cuda.current_device() != device.index:
         raise ValueError(f"tensor on {device} but the current CUDA device is "

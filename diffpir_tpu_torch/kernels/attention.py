@@ -3,9 +3,9 @@
 Port of the TPU kernel ``diffpir_tpu/pallas/attention.py::legacy_qkv_attention``
 (defined at ``:47``, ``pl.pallas_call`` at ``:62``, body ``_attn_kernel`` at
 ``:32-43``) to the CUDA kernel
-in ``csrc/attention.cu``.  qkv is (B, T, 3*C) with channel layout
-[head][q|k|v][ch]; q and k are both scaled by ch^-1/4; logits and softmax are
-fp32; the output is (B, T, C).
+in ``csrc/attention.cu`` (bf16 on tensor cores, fp32 on CUDA cores).  qkv is
+(B, T, 3*C) with channel layout [head][q|k|v][ch]; q and k are both scaled by
+ch^-1/4; logits and softmax are fp32; the output is (B, T, C).
 
 ``legacy_qkv_attention`` runs the plain version for a CPU tensor and the CUDA
 kernel for a CUDA tensor; it never falls back from one to the other.
@@ -13,18 +13,42 @@ kernel for a CUDA tensor; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from diffpir_tpu_torch.kernels import LAUNCHES
-from diffpir_tpu_torch.kernels._common import (check_cuda_tensor,
+from diffpir_tpu_torch.kernels._common import (check_aligned,
+                                               check_cuda_tensor,
                                                current_stream_handle,
                                                raise_on_error)
 
-__all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain"]
+__all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
+           "attention_rows_per_block", "check_inputs"]
 
 KERNEL_HEAD_CHANNELS = (32, 64)
+# query tiles the kernel takes, largest first: bf16 warps own 16 rows (tiles
+# of 16, 32) or 32 rows (64, 128); fp32 warps own 8 rows, at most 256 threads
+ROWS_PER_BLOCK = {True: (128, 64, 32, 16), False: (64, 32, 16)}
+MAX_PAIRS = 65535              # batch*heads: the grid's y extent
+
+
+def attention_rows_per_block(batch: int, t: int, heads: int, is_bf16: bool,
+                             num_sms: int = 132) -> int:
+    """Query rows per block: the largest tile whose grid still gives every
+    SM a block, else the smallest (few batch*head pairs at short T)."""
+    pairs = batch * heads
+    tiles = ROWS_PER_BLOCK[is_bf16]
+    for rows in tiles:
+        if pairs * -(-t // rows) >= num_sms:
+            return rows
+    return tiles[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def legacy_qkv_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -42,31 +66,44 @@ def legacy_qkv_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tenso
     return out.reshape(b, t, num_heads * ch)
 
 
+def check_inputs(qkv: torch.Tensor, num_heads: int) -> int:
+    """Raise unless the kernel takes ``qkv`` with ``num_heads`` heads
+    (shape, head width, batch*heads, type, contiguity, 16-byte alignment);
+    returns the head width."""
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"legacy_qkv_attention takes (B, T, 3*heads*ch), got "
+                         f"{tuple(qkv.shape)} with {num_heads} heads")
+    b, _, w = qkv.shape
+    ch = w // (3 * num_heads)
+    if ch not in KERNEL_HEAD_CHANNELS:
+        raise ValueError(f"legacy_qkv_attention: head width {ch} not in "
+                         f"{KERNEL_HEAD_CHANNELS}")
+    if b * num_heads > MAX_PAIRS:
+        raise ValueError(f"legacy_qkv_attention: batch*heads exceeds {MAX_PAIRS}")
+    check_cuda_tensor("qkv", qkv, qkv.device)
+    check_aligned("qkv", qkv)
+    return ch
+
+
 def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """qkv: (B, T, 3*C) with layout [head][q|k|v][head_dim] -> (B, T, C)."""
     if qkv.device.type == "cpu":
         return legacy_qkv_attention_plain(qkv, num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"legacy_qkv_attention: unsupported device {qkv.device}")
-    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
-        raise ValueError(f"legacy_qkv_attention takes (B, T, 3*heads*ch), got "
-                         f"{tuple(qkv.shape)} with {num_heads} heads")
-    b, t, w = qkv.shape
-    ch = w // (3 * num_heads)
-    if ch not in KERNEL_HEAD_CHANNELS:
-        raise ValueError(f"legacy_qkv_attention: head width {ch} not in "
-                         f"{KERNEL_HEAD_CHANNELS}")
-    if b * num_heads > 65535:
-        raise ValueError("legacy_qkv_attention: batch*heads exceeds 65535")
-    check_cuda_tensor("qkv", qkv, qkv.device)
+    ch = check_inputs(qkv, num_heads)
+    b, t, _ = qkv.shape
 
     from diffpir_tpu_torch.kernels.build import load_library
 
     lib = load_library()
     out = torch.empty((b, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
+    is_bf16 = qkv.dtype == torch.bfloat16
+    rows = attention_rows_per_block(b, t, num_heads, is_bf16,
+                                    _num_sms(qkv.device.index))
     rc = lib.diffpir_legacy_qkv_attention(
-        qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch,
-        int(qkv.dtype == torch.bfloat16), current_stream_handle(qkv.device))
+        qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch, rows, int(is_bf16),
+        current_stream_handle(qkv.device))
     raise_on_error("legacy_qkv_attention", rc)
     LAUNCHES["legacy_qkv_attention"] += 1
     return out

@@ -16,12 +16,14 @@ import dataclasses
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 
-__all__ = ["BUILD_DIR", "BuildInfo", "find_nvcc", "build", "load_library"]
+__all__ = ["BUILD_DIR", "BuildInfo", "find_nvcc", "build", "load_library",
+           "spill_bytes"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -35,12 +37,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # exported C functions: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
-    # x, out, scale, bias, film_scale, film_shift, workspace,
-    # B, HW, C, G, S, slice, eps, silu, is_bf16, stream
-    "diffpir_groupnorm_silu": [_P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # qkv, out, B, T, heads, ch, is_bf16, stream
-    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x, out, scale, bias, film_scale, film_shift, workspace, counters,
+    # B, HW, C, G, S, slice, rows, eps, silu, is_bf16, stream
+    "diffpir_groupnorm_silu": [_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # qkv, out, B, T, heads, ch, rows, is_bf16, stream
+    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -50,6 +52,7 @@ class BuildInfo:
     built: bool        # False when an up-to-date library was reused
     seconds: float     # wall time of the build (0 when reused)
     log: str           # nvcc's output, ptxas register and spill report included
+                       # (kept beside the library and returned when it is reused)
 
 
 def find_nvcc() -> str:
@@ -66,6 +69,15 @@ def find_nvcc() -> str:
         if os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
     raise RuntimeError("nvcc not found; tried: " + ", ".join(tried))
+
+
+def spill_bytes(log: str) -> int:
+    """Bytes of spill stores and loads over every kernel in a ``-Xptxas -v``
+    log; raises if the log holds no spill report at all."""
+    found = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    if not found:
+        raise ValueError("no ptxas spill report in the build log")
+    return sum(int(a) + int(b) for a, b in found)
 
 
 def _sources() -> list[str]:
@@ -106,11 +118,13 @@ def build() -> BuildInfo:
     nvcc = find_nvcc()
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp_path = lib_path + ".sha256"
+    log_path = lib_path + ".log"
     digest = _digest(nvcc)
-    if os.path.exists(lib_path) and os.path.exists(stamp_path):
+    if all(map(os.path.exists, (lib_path, stamp_path, log_path))):
         with open(stamp_path) as f:
             if f.read().strip() == digest:
-                return BuildInfo(lib_path, False, 0.0, "")
+                with open(log_path) as lf:
+                    return BuildInfo(lib_path, False, 0.0, lf.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     tag = f"{os.getpid()}"
@@ -127,6 +141,8 @@ def build() -> BuildInfo:
     for obj in objs:
         os.remove(obj)
     os.replace(tmp_lib, lib_path)
+    with open(log_path, "w") as f:
+        f.write(log)
     with open(stamp_path, "w") as f:
         f.write(digest + "\n")
     return BuildInfo(lib_path, True, time.perf_counter() - t0, log)

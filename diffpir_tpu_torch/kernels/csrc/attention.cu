@@ -3,139 +3,532 @@
 // Replaces the TPU kernel diffpir_tpu/pallas/attention.py::legacy_qkv_attention.
 // Input qkv is (B, T, 3*C) with the channel layout [head][q|k|v][ch]; the
 // output is (B, T, C) with head h at channels h*ch .. h*ch+ch-1.  q and k are
-// both scaled by ch^-1/4 (folded here into one 1/sqrt(ch) on q); logits and
-// softmax are fp32.  The JAX XLA path (diffpir_tpu/models/unet.py:225-240)
-// rounds logits and weights to bf16 in bf16 mode before P.V; this kernel keeps
-// them in fp32 throughout, so in bf16 it differs from that path by up to the
-// bf16 rounding of the weights (the stated tolerance is 3e-2).
+// both scaled by ch^-1/4, folded here into one log2(e)/sqrt(ch) on the fp32
+// logits, which then go through exp2.  Logits and the softmax are fp32.  In
+// bf16 the unnormalised weights are rounded to bf16 as the A operand of P.V
+// (as diffpir_tpu/models/unet.py:238 rounds the weights before P.V) and the
+// row sum divides the fp32 accumulator at the end.
 //
 // Bound on this card: at the UNet's shapes (T <= 1024, ch 32 or 64) the least
-// time is set by operations, 4*B*heads*T*T*ch over the peak rate of the type;
-// this first version uses scalar fp32 FMAs, far from that peak.
+// time is set by bytes (bf16) or by operations (fp32): one (b, head) pair
+// reads 3*T*ch and writes T*ch elements and does 4*T*T*ch operations, under
+// 300 operations per byte up to T = 1024.  In practice the bf16 kernel is held
+// by latency and by its shared-memory and exp2 throughput per SM, not by the
+// tensor cores; the first version was held by parallelism (one thread per
+// query row) and scalar FMAs.
 //
-// Design.  The Pallas kernel held a whole (T, 3ch) head in VMEM and ran both
-// products on the MXU.  Here one block of 64 threads takes one (batch*head,
-// 64-row query tile); each thread owns one query row in registers (q and the
-// output accumulator, ch floats each).  Key and value tiles of 64 rows are
-// staged in shared memory straight from the legacy layout at offsets
-// h*3ch + ch and h*3ch + 2ch (no transpose copy), and every thread reads them
-// as broadcasts.  An online softmax (running max and sum, rescaled once per
-// 16 keys) keeps the (T, T) logits out of memory.  wgmma/TMA come later.
+// Design, bf16 (attn_bf16): flash attention on tensor cores.  A block takes
+// one (batch*head, query tile of 16 to 128 rows); each warp owns 16 or 32
+// query rows, held as mma.sync A fragments loaded straight from the legacy
+// layout (32 rows per warp halve the shared-memory reads per row: every K and
+// V fragment feeds two products).  Key and value tiles of 64 rows are copied
+// with 16-byte cp.async, double buffered, from row stride 3C at offsets
+// h*3ch+ch and h*3ch+2ch (no transpose copy), into rows padded by 16 bytes so
+// that ldmatrix reads them without bank conflicts (ldmatrix.trans for V).
+// S = Q.K^T and O += P.V run as mma.sync.m16n8k16 (bf16 in, fp32 accumulate);
+// the online softmax runs on the accumulator fragments, row max and sum by
+// quad shuffles, exp2 by ex2.approx.  The wrapper picks the query tile from
+// the grid (kernels/attention.py attention_rows_per_block) so that small
+// batch*heads still fill the SMs.
+//
+// Design, fp32 (attn_f32): the fp32 tolerance rules out TF32, so this path
+// stays on CUDA cores, where shared memory feeds a lane 32 floats per SM
+// clock against 128 FMAs: each value read must serve several rows.  Eight
+// lanes share two query rows: at ch 32 four split the keys of a tile and two
+// the channels, at ch 64 two and four (16-byte chunks interleaved, dot
+// products joined by shuffles).  Each thread keeps 16 q and 16 accumulator
+// values per row in registers, uses every K and V value it reads for both
+// rows, and keeps its own running (max, sum) per row; the key-split lanes are
+// merged at the end.  K/V tiles of 32 rows are staged with a cp.async double
+// buffer, padded so that the eight lanes' 16-byte reads hit distinct banks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;     // query rows per block (one per thread)
-constexpr int kBK = 64;     // key rows per shared-memory tile
-constexpr int kChunk = 16;  // keys per softmax rescale
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int CH>
-__global__ void __launch_bounds__(kBQ)
-attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_, int H,
-            float qscale) {
-  __shared__ float Ks[kBK][CH];
-  __shared__ float Vs[kBK][CH];
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int row = blockIdx.x * kBQ + threadIdx.x;
+// 16-byte async copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage rows k0 .. k0+BK-1 of K and V of one (batch, head) into padded
+// shared tiles [BK][LD]; rows at or past T are zero-filled.
+template <typename T, int CH, int BK, int LD>
+__device__ __forceinline__ void load_kv_tile(const T* __restrict__ base, int W3,
+                                             int k0, int T_, T* Ks, T* Vs) {
+  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int kChunks = CH / kPer;    // chunks per row
+  for (int i = threadIdx.x; i < BK * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    const int key = k0 + r;
+    const bool ok = key < T_;
+    const T* src = base + (size_t)(ok ? key : 0) * W3 + c;
+    cp_async16(Ks + r * LD + c, src + CH, ok ? 16 : 0);
+    cp_async16(Vs + r * LD + c, src + 2 * CH, ok ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBKb = 64;      // keys per tile
+constexpr int kStagesb = 2;   // K/V tiles in flight, at most: a double buffer
+constexpr int kMt2Rows = 64;  // query tiles from which warps own 32 rows
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// MT m16 tiles (16*MT query rows) per warp: each K and V fragment read from
+// shared memory feeds MT products.  Dynamic shared memory: stages * 2 *
+// kBKb * (CH + 8) bf16, a ring of K/V tiles, stages = min(kStagesb, tiles).
+template <int CH, int MT>
+__global__ void __launch_bounds__(128)
+attn_bf16(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+          int T_, int H, float scale_log2, int stages) {
+  constexpr int LD = CH + 8;     // padded row: 16 bytes more
+  constexpr int KS = CH / 16;    // k-steps of Q.K^T
+  constexpr int NT = kBKb / 8;   // n-tiles of S
+  constexpr int NO = CH / 8;     // n-tiles of O
+  constexpr int TILE = kBKb * LD;
+  extern __shared__ __align__(16) __nv_bfloat16 ring[];  // [stages][K, V][TILE]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int W3 = 3 * H * CH;
-  const T* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * CH;
-  const bool valid = row < T_;
+  const __nv_bfloat16* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * CH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16 * MT;
+  const int ntiles = (T_ + kBKb - 1) / kBKb;
 
-  float q[CH], acc[CH];
-#pragma unroll
-  for (int d = 0; d < CH; ++d) {
-    q[d] = valid ? to_f(base[(size_t)row * W3 + d]) * qscale : 0.f;
-    acc[d] = 0.f;
+  // prologue: tiles 0 .. stages-2 in flight, one commit group each
+  for (int st = 0; st < stages - 1; ++st) {
+    load_kv_tile<__nv_bfloat16, CH, kBKb, LD>(base, W3, st * kBKb, T_,
+                                              ring + 2 * st * TILE,
+                                              ring + (2 * st + 1) * TILE);
+    cp_async_commit();
   }
-  float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < T_; k0 += kBK) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBK * CH; idx += kBQ) {
-      const int r = idx / CH, d = idx % CH;
-      const int kr = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kr < T_) {
-        kv = to_f(base[(size_t)kr * W3 + CH + d]);
-        vv = to_f(base[(size_t)kr * W3 + 2 * CH + d]);
-      }
-      Ks[r][d] = kv;
-      Vs[r][d] = vv;
-    }
-    __syncthreads();
-    const int nk = min(kBK, T_ - k0);
-    for (int j0 = 0; j0 < nk; j0 += kChunk) {
-      float s[kChunk];
-      float mnew = m;
+  // Q as A fragments: rows r0+g and r0+g+8 of m-tile mt, channels 16kk + 2t4
+  // (+1, +8, +9)
+  uint32_t qa[MT][KS][4];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = j0 + jj;
-        float dot = 0.f;
+  for (int mt = 0; mt < MT; ++mt) {
+    const int ra = row0 + 16 * mt + g, rb = ra + 8;
 #pragma unroll
-        for (int d = 0; d < CH; ++d) dot = fmaf(q[d], Ks[j][d], dot);
-        s[jj] = (j < nk) ? dot : -INFINITY;
-        mnew = fmaxf(mnew, s[jj]);
-      }
-      // mnew is finite: j0 < nk, so the chunk holds at least one key
-      const float corr = expf(m - mnew);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < CH; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = expf(s[jj] - mnew);
-        l += p;
-#pragma unroll
-        for (int d = 0; d < CH; ++d) acc[d] = fmaf(p, Vs[j0 + jj][d], acc[d]);
-      }
-      m = mnew;
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c = kk * 16 + 2 * t4;
+      qa[mt][kk][0] = ra < T_ ? *reinterpret_cast<const uint32_t*>(base + (size_t)ra * W3 + c) : 0u;
+      qa[mt][kk][1] = rb < T_ ? *reinterpret_cast<const uint32_t*>(base + (size_t)rb * W3 + c) : 0u;
+      qa[mt][kk][2] = ra < T_ ? *reinterpret_cast<const uint32_t*>(base + (size_t)ra * W3 + c + 8) : 0u;
+      qa[mt][kk][3] = rb < T_ ? *reinterpret_cast<const uint32_t*>(base + (size_t)rb * W3 + c + 8) : 0u;
     }
   }
-  if (valid) {
-    const float inv = 1.f / l;
-    T* o = out + ((size_t)b * T_ + row) * (H * CH) + (size_t)h * CH;
+
+  float o[MT][NO][4];
+  // running max of the raw logits of rows g and g+8 (times scale_log2 when
+  // used), and the row sums
+  float m[MT][2], l[MT][2];
 #pragma unroll
-    for (int d = 0; d < CH; ++d) o[d] = from_f<T>(acc[d] * inv);
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  // ldmatrix lane addressing: lane supplies row (lane % 8) of matrix lane / 8
+  const int lr = lane % 8, lm = lane / 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    __syncthreads();  // every warp is done with tile t-1, whose slot is refilled
+    const int nxt = t + stages - 1;
+    if (nxt < ntiles) {
+      const int sl = nxt % stages;
+      load_kv_tile<__nv_bfloat16, CH, kBKb, LD>(base, W3, nxt * kBKb, T_,
+                                                ring + 2 * sl * TILE,
+                                                ring + (2 * sl + 1) * TILE);
+    }
+    cp_async_commit();
+    if (stages == 2) cp_async_wait<1>();  // tile t has landed (for this thread)
+    else cp_async_wait<0>();
+    __syncthreads();                 // ... and for every thread
+    const __nv_bfloat16* Kt = ring + 2 * (t % stages) * TILE;
+    const __nv_bfloat16* Vt = Kt + TILE;
+
+    // S = Q K^T: matrix lm of an x4 load covers keys 8j..8j+7, channels 8*lm..
+    float s[MT][NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+      for (int c0 = 0; c0 < CH; c0 += 32) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Kt + (8 * j + lr) * LD + c0 + 8 * lm);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][j], qa[mt][c0 / 16], kb[0], kb[1]);
+          mma_bf16(s[mt][j], qa[mt][c0 / 16 + 1], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // online softmax on the fragments: s[.][j][0..1] row g, [2..3] row g+8
+    const int k0 = t * kBKb;
+    if (k0 + kBKb > T_) {  // the ragged last tile: keys at or past T drop out
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t4 + (e & 1) >= T_) s[mt][j][e] = -INFINITY;
+    }
+    float sub[MT][2];  // the new row maxima, times scale_log2
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx0 = m[mt][0], mx1 = m[mt][1];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[mt][j][0], s[mt][j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[mt][j][2], s[mt][j][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // every tile holds at least one key (k0 < T), so mx0 and mx1 are finite
+      const float c0f = ex2((m[mt][0] - mx0) * scale_log2);
+      const float c1f = ex2((m[mt][1] - mx1) * scale_log2);
+      sub[mt][0] = mx0 * scale_log2;
+      sub[mt][1] = mx1 * scale_log2;
+      m[mt][0] = mx0;
+      m[mt][1] = mx1;
+      l[mt][0] *= c0f;
+      l[mt][1] *= c1f;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[mt][n][0] *= c0f;
+        o[mt][n][1] *= c0f;
+        o[mt][n][2] *= c1f;
+        o[mt][n][3] *= c1f;
+      }
+    }
+
+    // per 16 keys: P as bf16 A fragments (two n-tiles of S), then O += P V;
+    // V matrix lm: keys 16kk + 8*(lm&1) .., channels 8*(n + (lm>>1)) ..
+#pragma unroll
+    for (int kk = 0; kk < kBKb / 16; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float p[2][4];
+#pragma unroll
+        for (int hlf = 0; hlf < 2; ++hlf) {
+          const int j = 2 * kk + hlf;
+          p[hlf][0] = ex2(fmaf(s[mt][j][0], scale_log2, -sub[mt][0]));
+          p[hlf][1] = ex2(fmaf(s[mt][j][1], scale_log2, -sub[mt][0]));
+          p[hlf][2] = ex2(fmaf(s[mt][j][2], scale_log2, -sub[mt][1]));
+          p[hlf][3] = ex2(fmaf(s[mt][j][3], scale_log2, -sub[mt][1]));
+          l[mt][0] += p[hlf][0] + p[hlf][1];
+          l[mt][1] += p[hlf][2] + p[hlf][3];
+        }
+        pa[mt][0] = pack_bf16(p[0][0], p[0][1]);
+        pa[mt][1] = pack_bf16(p[0][2], p[0][3]);
+        pa[mt][2] = pack_bf16(p[1][0], p[1][1]);
+        pa[mt][3] = pack_bf16(p[1][2], p[1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Vt + (16 * kk + 8 * (lm & 1) + lr) * LD + 8 * (n + (lm >> 1)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][n], pa[mt], vb[0], vb[1]);
+          mma_bf16(o[mt][n + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  const int C = H * CH;
+  __nv_bfloat16* ob = out + (size_t)b * T_ * C + (size_t)h * CH + 2 * t4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = l[mt][0], l1 = l[mt][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int ra = row0 + 16 * mt + g, rb = ra + 8;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (ra < T_)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)ra * C + 8 * n) =
+            __floats2bfloat162_rn(o[mt][n][0] * i0, o[mt][n][1] * i0);
+      if (rb < T_)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rb * C + 8 * n) =
+            __floats2bfloat162_rn(o[mt][n][2] * i1, o[mt][n][3] * i1);
+    }
   }
 }
 
-template <typename T, int CH>
-cudaError_t launch(const void* qkv, void* out, int B, int T_, int H,
-                   cudaStream_t st) {
-  const dim3 grid((T_ + kBQ - 1) / kBQ, B * H);
-  const float qscale = 1.f / sqrtf((float)CH);
-  attn_kernel<T, CH><<<grid, kBQ, 0, st>>>(static_cast<const T*>(qkv),
-                                           static_cast<T*>(out), T_, H, qscale);
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores, four threads per query row
+// ---------------------------------------------------------------------------
+
+constexpr int kBKf = 32;  // keys per tile
+constexpr int kChunkf = 8;  // keys per thread between softmax rescales
+
+// Eight lanes share two query rows: KS lanes split the keys of a tile and
+// CS = 8 / KS lanes its channels, CPT = CH / CS each (16-byte chunks
+// interleaved).  Each loaded K or V value serves both rows.
+template <int CH>
+struct F32Split {
+  static constexpr int KS = CH == 32 ? 4 : 2;
+  static constexpr int CS = 8 / KS;
+  static constexpr int CPT = CH / CS;          // channels per thread (16)
+  static constexpr int LD = CH + 4 * CS;       // padded row, in floats
+};
+
+template <int CH>
+__global__ void __launch_bounds__(256, 2)
+attn_f32(const float* __restrict__ qkv, float* __restrict__ out, int T_, int H,
+         float scale_log2) {
+  using S = F32Split<CH>;
+  constexpr int KS = S::KS, CS = S::CS, CPT = S::CPT, LD = S::LD;
+  constexpr int NV = CPT / 4;          // float4 chunks per thread and row
+  constexpr int KPT = kBKf / KS;       // keys per thread per tile
+  __shared__ __align__(16) float Ks[2][kBKf * LD];
+  __shared__ __align__(16) float Vs[2][kBKf * LD];
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int W3 = 3 * H * CH;
+  const float* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * CH;
+  const int lane = threadIdx.x % 32, ql = lane % 8;
+  const int kl = ql % KS, cl = ql / KS;
+  const int row0 = blockIdx.x * (blockDim.x / 4) + (threadIdx.x / 8) * 2;
+  const int ntiles = (T_ + kBKf - 1) / kBKf;
+
+  load_kv_tile<float, CH, kBKf, LD>(base, W3, 0, T_, Ks[0], Vs[0]);
+  cp_async_commit();
+
+  // this thread's channels: 16-byte chunks cl, cl+CS, cl+2CS, ...
+  float4 q[2][NV], acc[2][NV];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int c = 4 * (cl + CS * u);
+      q[i][u] = row0 + i < T_
+                    ? *reinterpret_cast<const float4*>(base + (size_t)(row0 + i) * W3 + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < ntiles) {
+      load_kv_tile<float, CH, kBKf, LD>(base, W3, (t + 1) * kBKf, T_, Ks[cur ^ 1],
+                                        Vs[cur ^ 1]);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks[cur];
+    const float* Vt = Vs[cur];
+    const int k0 = t * kBKf;
+
+#pragma unroll
+    for (int i0 = 0; i0 < KPT; i0 += kChunkf) {
+      float s[2][kChunkf];
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kChunkf; ++i) {
+        const int j = (i0 + i) * KS + kl;
+        const float* kr = Kt + j * LD;
+        float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * (cl + CS * u));
+          d0 = fmaf(q[0][u].x, kv.x, d0);
+          d0 = fmaf(q[0][u].y, kv.y, d0);
+          d0 = fmaf(q[0][u].z, kv.z, d0);
+          d0 = fmaf(q[0][u].w, kv.w, d0);
+          d1 = fmaf(q[1][u].x, kv.x, d1);
+          d1 = fmaf(q[1][u].y, kv.y, d1);
+          d1 = fmaf(q[1][u].z, kv.z, d1);
+          d1 = fmaf(q[1][u].w, kv.w, d1);
+        }
+#pragma unroll
+        for (int off = KS; off < 8; off *= 2) {  // join the channel lanes
+          d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+          d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+        }
+        const bool valid = k0 + j < T_;
+        s[0][i] = valid ? d0 * scale_log2 : -INFINITY;
+        s[1][i] = valid ? d1 * scale_log2 : -INFINITY;
+        mx[0] = fmaxf(mx[0], s[0][i]);
+        mx[1] = fmaxf(mx[1], s[1][i]);
+      }
+      float ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // a thread whose keys are all masked so far keeps m = -inf
+        ms[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+        const float corr = exp2f(m[r] - ms[r]);
+        m[r] = mx[r];
+        l[r] *= corr;
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          acc[r][u].x *= corr;
+          acc[r][u].y *= corr;
+          acc[r][u].z *= corr;
+          acc[r][u].w *= corr;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kChunkf; ++i) {
+        const float p0 = exp2f(s[0][i] - ms[0]), p1 = exp2f(s[1][i] - ms[1]);
+        l[0] += p0;
+        l[1] += p1;
+        const float* vr = Vt + ((i0 + i) * KS + kl) * LD;
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * (cl + CS * u));
+          acc[0][u].x = fmaf(p0, vv.x, acc[0][u].x);
+          acc[0][u].y = fmaf(p0, vv.y, acc[0][u].y);
+          acc[0][u].z = fmaf(p0, vv.z, acc[0][u].z);
+          acc[0][u].w = fmaf(p0, vv.w, acc[0][u].w);
+          acc[1][u].x = fmaf(p1, vv.x, acc[1][u].x);
+          acc[1][u].y = fmaf(p1, vv.y, acc[1][u].y);
+          acc[1][u].z = fmaf(p1, vv.z, acc[1][u].z);
+          acc[1][u].w = fmaf(p1, vv.w, acc[1][u].w);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // merge the key-split lanes: (m, l, acc) of lane and lane ^ off
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < KS; off *= 2) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mn = fmaxf(m[r], mo);
+      const float ms = mn == -INFINITY ? 0.f : mn;
+      const float a = exp2f(m[r] - ms), bo = exp2f(mo - ms);
+      l[r] = l[r] * a + lo * bo;
+      m[r] = mn;
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        acc[r][u].x = acc[r][u].x * a + __shfl_xor_sync(0xffffffffu, acc[r][u].x, off) * bo;
+        acc[r][u].y = acc[r][u].y * a + __shfl_xor_sync(0xffffffffu, acc[r][u].y, off) * bo;
+        acc[r][u].z = acc[r][u].z * a + __shfl_xor_sync(0xffffffffu, acc[r][u].z, off) * bo;
+        acc[r][u].w = acc[r][u].w * a + __shfl_xor_sync(0xffffffffu, acc[r][u].w, off) * bo;
+      }
+    }
+    const int row = row0 + r;
+    if (row < T_ && kl == 0) {
+      const float inv = 1.f / l[r];
+      float* o = out + ((size_t)b * T_ + row) * (H * CH) + (size_t)h * CH;
+#pragma unroll
+      for (int u = 0; u < NV; ++u)
+        *reinterpret_cast<float4*>(o + 4 * (cl + CS * u)) =
+            make_float4(acc[r][u].x * inv, acc[r][u].y * inv, acc[r][u].z * inv,
+                        acc[r][u].w * inv);
+    }
+  }
+}
+
+template <int CH>
+cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
+                   bool bf16, cudaStream_t st) {
+  const dim3 grid((T_ + rows - 1) / rows, B * H);
+  const float scale_log2 = kLog2e / sqrtf((float)CH);
+  if (bf16) {
+    const int ntiles = (T_ + kBKb - 1) / kBKb;
+    const int stages = ntiles < kStagesb ? ntiles : kStagesb;
+    const size_t smem = (size_t)stages * 2 * kBKb * (CH + 8) * sizeof(__nv_bfloat16);
+    const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    if (rows >= kMt2Rows)  // 32 query rows per warp
+      attn_bf16<CH, 2><<<grid, rows, smem, st>>>(q, o, T_, H, scale_log2, stages);
+    else                   // 16 query rows per warp
+      attn_bf16<CH, 1><<<grid, 2 * rows, smem, st>>>(q, o, T_, H, scale_log2, stages);
+  } else {  // 8 query rows per warp
+    attn_f32<CH><<<grid, 4 * rows, 0, st>>>(static_cast<const float*>(qkv),
+                                            static_cast<float*>(out), T_, H, scale_log2);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t; ch must be 32 or 64.
+// Returns a cudaError_t.  ch must be 32 or 64, rows (query rows per block)
+// 16, 32, 64 or (bf16 only) 128, and qkv and out 16-byte aligned.
 extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
-                                            int T, int heads, int ch,
+                                            int T, int heads, int ch, int rows,
                                             int is_bf16, void* stream) {
-  if (B <= 0 || T <= 0 || heads <= 0 || B * heads > 65535)
+  if (B <= 0 || T <= 0 || heads <= 0 || B * heads > 65535 ||
+      (rows != 16 && rows != 32 && rows != 64 && !(is_bf16 && rows == 128)) ||
+      (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ch == 32)
-    return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(qkv, out, B, T, heads, st)
-                         : launch<float, 32>(qkv, out, B, T, heads, st));
-  if (ch == 64)
-    return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(qkv, out, B, T, heads, st)
-                         : launch<float, 64>(qkv, out, B, T, heads, st));
+  if (ch == 32) return (int)launch<32>(qkv, out, B, T, heads, rows, is_bf16, st);
+  if (ch == 64) return (int)launch<64>(qkv, out, B, T, heads, rows, is_bf16, st);
   return (int)cudaErrorInvalidValue;
 }

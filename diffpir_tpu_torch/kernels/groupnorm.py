@@ -7,8 +7,9 @@ Port of the TPU kernel ``diffpir_tpu/pallas/groupnorm.py::groupnorm_silu``
 path computes (``diffpir_tpu/models/unet.py:83-131``): per-group fp32 mean
 and variance over H*W*(C/G), eps 1e-5, the affine step, optional FiLM
 ``y*(1+fs)+fb``, optional SiLU, output in the input's type.  fp32 inputs use
-the two-pass centred variance; bf16 inputs the one-pass E[x^2]-mean^2,
-clamped at 0.
+a centred variance (the plain version two passes; the kernel per-block
+centred sums merged with Chan's formula, one read); bf16 inputs the one-pass
+E[x^2]-mean^2, clamped at 0.  The kernel makes two launches per call.
 
 ``groupnorm_silu`` runs the plain version for a CPU tensor and the CUDA kernel
 for a CUDA tensor; it never falls back from one to the other.
@@ -23,15 +24,25 @@ import torch
 import torch.nn.functional as F
 
 from diffpir_tpu_torch.kernels import LAUNCHES
-from diffpir_tpu_torch.kernels._common import (check_cuda_tensor,
+from diffpir_tpu_torch.kernels._common import (check_aligned,
+                                               check_cuda_tensor,
                                                current_stream_handle,
                                                raise_on_error)
 
-__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "partition_pixels"]
+__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "partition_pixels",
+           "thread_layout", "check_inputs"]
 
-MAX_GROUPS = 64       # csrc/groupnorm.cu kMaxGroups
-_TARGET_BLOCKS = 528  # ~4 partial-sum blocks per SM of a 132-SM card
-_MIN_SLICE = 64       # pixels per partial-sum block, at least
+MAX_GROUPS = 64           # csrc/groupnorm.cu kMaxGroups
+MAX_THREADS = 1024        # threads per block
+MAX_STATIC_SMEM = 48 * 1024
+_TARGET_BLOCKS = 528      # ~4 statistics blocks per SM of a 132-SM card: one wave
+_MIN_SLICE = 64           # pixels per statistics block, at least
+_ROW_THREADS = 256        # threads per block to aim for
+
+# per-(device, stream) ticket counters of the statistics launch; the kernel
+# leaves them at 0, so each buffer is zeroed once, when it is made, and never
+# while a CUDA graph is captured (the zero-fill would exist only in that graph)
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -69,12 +80,66 @@ def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
 
 
 def partition_pixels(batch: int, hw: int) -> tuple[int, int]:
-    """(slices, pixels per slice) for the partial-sum stage: enough blocks
-    to fill the card, at least ``_MIN_SLICE`` pixels each."""
+    """(slices, pixels per slice) for the statistics launch: enough blocks
+    to fill the card, at least ``_MIN_SLICE`` pixels each, none empty."""
     want = max(1, -(-_TARGET_BLOCKS // batch))
     slices = max(1, min(want, -(-hw // _MIN_SLICE)))
     per = -(-hw // slices)
     return -(-hw // per), per
+
+
+def thread_layout(c: int, itemsize: int) -> tuple[int, int, int]:
+    """(channels per 16-byte vector, vectors per pixel, pixel rows) of a
+    block of both launches.  Thread ``i`` of the block's ``vectors * rows``
+    always reads vector column ``i % vectors`` (channels ``vec*(i % vectors)``
+    onward) of pixel row ``i // vectors``, so its channels never change."""
+    vec = 16 // itemsize
+    if c % vec:
+        raise ValueError(f"groupnorm_silu: C={c} is not a multiple of {vec} "
+                         f"(16-byte vectors of {itemsize}-byte elements)")
+    nv = c // vec
+    rows = max(1, _ROW_THREADS // nv)
+    if nv * rows > MAX_THREADS or 2 * 4 * rows * c > MAX_STATIC_SMEM:
+        raise ValueError(f"groupnorm_silu: C={c} is too wide for one block")
+    return vec, nv, rows
+
+
+def check_inputs(x, scale, bias, film_scale=None, film_shift=None, *,
+                 num_groups: int = 32) -> tuple[int, int, int]:
+    """Raise unless the kernel takes these arguments (shapes, types,
+    contiguity, 16-byte alignment of ``x``); returns ``thread_layout``."""
+    if x.ndim != 4:
+        raise ValueError(f"groupnorm_silu takes (B, H, W, C), got {tuple(x.shape)}")
+    b, _, _, c = x.shape
+    if num_groups > MAX_GROUPS or c % num_groups:
+        raise ValueError(f"groupnorm_silu: C={c} with {num_groups} groups "
+                         f"(need C % G == 0 and G <= {MAX_GROUPS})")
+    if (film_scale is None) != (film_shift is None):
+        raise ValueError("film_scale and film_shift go together")
+    dev = x.device
+    check_cuda_tensor("x", x, dev)
+    check_aligned("x", x)
+    f32 = (torch.float32,)
+    check_cuda_tensor("scale", scale, dev, f32, (c,))
+    check_cuda_tensor("bias", bias, dev, f32, (c,))
+    if film_scale is not None:
+        check_cuda_tensor("film_scale", film_scale, dev, f32, (b, c))
+        check_cuda_tensor("film_shift", film_shift, dev, f32, (b, c))
+    return thread_layout(c, x.element_size())
+
+
+def _counters(dev: torch.device, stream: int, batch: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < batch:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"groupnorm_silu: no ticket counters for batch {batch} on this "
+                "stream yet; call it once on the capturing stream before the "
+                "CUDA-graph capture (a warm-up on that stream)")
+        buf = _COUNTERS[key] = torch.zeros(max(batch, 64), dtype=torch.int32,
+                                           device=dev)
+    return buf
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -92,37 +157,27 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                     do_silu=do_silu)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
-    if x.ndim != 4:
-        raise ValueError(f"groupnorm_silu takes (B, H, W, C), got {tuple(x.shape)}")
-    b, h, w, c = x.shape
-    if num_groups > MAX_GROUPS or c % num_groups:
-        raise ValueError(f"groupnorm_silu: C={c} with {num_groups} groups "
-                         f"(need C % G == 0 and G <= {MAX_GROUPS})")
-    if (film_scale is None) != (film_shift is None):
-        raise ValueError("film_scale and film_shift go together")
-    dev = x.device
-    check_cuda_tensor("x", x, dev)
-    f32 = (torch.float32,)
-    check_cuda_tensor("scale", scale, dev, f32, (c,))
-    check_cuda_tensor("bias", bias, dev, f32, (c,))
-    if film_scale is not None:
-        check_cuda_tensor("film_scale", film_scale, dev, f32, (b, c))
-        check_cuda_tensor("film_shift", film_shift, dev, f32, (b, c))
+    _, _, rows = check_inputs(x, scale, bias, film_scale, film_shift,
+                              num_groups=num_groups)
 
     from diffpir_tpu_torch.kernels.build import load_library
 
     lib = load_library()
+    b, h, w, c = x.shape
     hw = h * w
+    dev = x.device
     slices, per = partition_pixels(b, hw)
-    ws = torch.empty(2 * b * slices * c + 2 * b * num_groups + 2 * b * c,
+    stream = current_stream_handle(dev)
+    ws = torch.empty(2 * b * (slices + 1) * num_groups,
                      dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     rc = lib.diffpir_groupnorm_silu(
         x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         None if film_scale is None else film_scale.data_ptr(),
         None if film_shift is None else film_shift.data_ptr(),
-        ws.data_ptr(), b, hw, c, num_groups, slices, per, eps, int(do_silu),
-        int(x.dtype == torch.bfloat16), current_stream_handle(dev))
+        ws.data_ptr(), _counters(dev, stream, b).data_ptr(), b, hw, c,
+        num_groups, slices, per, rows, eps, int(do_silu),
+        int(x.dtype == torch.bfloat16), stream)
     raise_on_error("groupnorm_silu", rc)
     LAUNCHES["groupnorm_silu"] += 1
     return out

@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from diffpir_tpu_torch import resolve_device
 from diffpir_tpu_torch.models.unet import UNet, UNetConfig
 
 __all__ = ["MODEL_ZOO_CONFIGS", "TINY_TEST_CONFIG", "DEMO_HQ_CONFIG",
@@ -149,8 +150,13 @@ class ResolvedModel(NamedTuple):
 
 def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
                   dtype: torch.dtype = torch.float32,
-                  device: torch.device | str = "cpu", kernels: str = "cuda",
+                  device: torch.device | str | None = None, kernels: str = "cuda",
                   init_seed: int = 0) -> ResolvedModel:
+    """The model ``model_name`` with its weights, on ``device``: by default
+    the current CUDA card (raises when there is none); the CPU only when
+    ``device="cpu"`` is asked for."""
+    if device is None:
+        device = resolve_device(cpu=False)
     cfg = model_config_for(model_name)
     model = UNet(cfg, dtype=dtype, kernels=kernels)
     candidates = [(os.path.join(model_zoo, f"{model_name}.flax.npz"), "cache"),

@@ -56,3 +56,44 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     assert LAUNCHES["legacy_qkv_attention"] == 0
     with pytest.raises(ValueError, match="unsupported device"):
         tattn.legacy_qkv_attention(torch.empty((1, 64, 192), device="meta"), 2)
+
+
+# (batch, T, heads, ch) of every attention call on the three paths the port
+# is measured on, T = (256 / downsample)^2: demo64_hq (ds 4, 8 heads of 32),
+# DEMO256 (ds 16 and the middle block at ds 32, 6 heads of 64 at batch 4),
+# diffusion_ffhq_10m at batch 16 (8 heads of 64); the T=1024 check of
+# 256x256_diffusion_uncond at ds 8; and ragged shapes
+PATH_SHAPES = [(4, 256, 8, 32), (4, 256, 6, 64), (4, 64, 6, 64), (16, 256, 8, 64),
+               (16, 64, 8, 64), (4, 1024, 8, 64), (1, 1, 1, 32), (3, 37, 2, 32),
+               (2, 100, 2, 64)]
+
+
+@pytest.mark.parametrize("is_bf16", [True, False])
+@pytest.mark.parametrize("b,t,heads,ch", PATH_SHAPES)
+def test_rows_per_block_covers_t_within_kernel_limits(b, t, heads, ch, is_bf16):
+    for num_sms in (132, 114, 1):
+        rows = tattn.attention_rows_per_block(b, t, heads, is_bf16, num_sms)
+        assert rows in tattn.ROWS_PER_BLOCK[is_bf16]
+        tiles = -(-t // rows)
+        assert tiles * rows >= t and (tiles - 1) * rows < t
+        # the largest tile that still gives every SM a block
+        larger = [r for r in tattn.ROWS_PER_BLOCK[is_bf16] if r > rows]
+        assert all(b * heads * -(-t // r) < num_sms for r in larger)
+    assert b * heads <= tattn.MAX_PAIRS
+
+
+def test_misaligned_qkv_is_refused_before_any_build(monkeypatch):
+    from diffpir_tpu_torch.kernels import build
+
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(build, "load_library", no_build)
+    n = 64 * 192
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    shifted = flat[1:1 + n].view(1, 64, 192)  # 2 bytes past a 16-byte boundary
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tattn.check_inputs(shifted, 2)
+    assert tattn.check_inputs(flat[8:].view(1, 64, 192), 2) == 32

@@ -103,3 +103,174 @@ def test_partition_covers_every_pixel(batch, hw):
     slices, per = tgn.partition_pixels(batch, hw)
     assert slices >= 1 and per >= 1
     assert slices * per >= hw and (slices - 1) * per < hw
+
+
+# (B, H*W, C, itemsize): GroupNorm layers of the three paths the port is
+# measured on (demo64_hq fp32, DEMO256 bf16, diffusion_ffhq_10m bf16 at batch
+# 16), at their extremes of width and size, and small ragged ones
+LAYOUT_CASES = [(4, 64 * 64, 128, 4), (4, 8 * 8, 512, 4), (4, 16 * 16, 384, 4),
+                (4, 256 * 256, 96, 2), (4, 128 * 128, 288, 2), (4, 8 * 8, 768, 2),
+                (16, 256 * 256, 128, 2), (16, 8 * 8, 1024, 2), (2, 35, 96, 4),
+                (1, 1, 32, 2)]
+
+
+@pytest.mark.parametrize("batch,hw,c,itemsize", LAYOUT_CASES)
+def test_launch_geometry_covers_every_element_once(batch, hw, c, itemsize):
+    """Both launches: thread i of a block always reads vector column
+    i % vectors (fixed channels), and the threads of the statistics blocks
+    (one per slice) and of the apply items each cover every (pixel, vector)
+    of a sample exactly once."""
+    vec, nv, rows = tgn.thread_layout(c, itemsize)
+    assert vec * nv == c and vec * itemsize == 16
+    assert 1 <= nv * rows <= tgn.MAX_THREADS
+    assert 2 * 4 * rows * c <= tgn.MAX_STATIC_SMEM
+    thread = np.arange(nv * rows)
+    col, row = thread % nv, thread // nv
+    slices, per = tgn.partition_pixels(batch, hw)
+    seen = np.zeros((hw, nv), np.int64)
+    for s in range(slices):  # gn_stats: pixels p0 + row, p0 + row + rows, ...
+        p0, p1 = s * per, min(hw, (s + 1) * per)
+        assert p1 > p0
+        for k in range(-(-(p1 - p0) // rows)):
+            p = p0 + row + k * rows
+            ok = p < p1
+            np.add.at(seen, (p[ok], col[ok]), 1)
+    assert (seen == 1).all()
+    seen[:] = 0
+    chunk = 4 * rows  # gn_apply: item q is pixels q*chunk + row + k*rows, k < 4
+    for q in range(-(-hw // chunk)):
+        for k in range(4):
+            p = q * chunk + row + k * rows
+            ok = p < hw
+            np.add.at(seen, (p[ok], col[ok]), 1)
+    assert (seen == 1).all()
+
+
+def _chan(a, b):
+    """(n, mean, M2) of two disjoint sets -> of their union, in float32."""
+    n, mu, m2 = a
+    nb, mub, m2b = b
+    if nb == 0:
+        return a
+    if n == 0:
+        return b
+    nt = np.float32(n + nb)
+    d = np.float32(mub - mu)
+    return (nt, np.float32(mu + d * np.float32(nb / nt)),
+            np.float32(m2 + m2b + d * d * np.float32(n * nb / nt)))
+
+
+def _kernel_fp32_stats(x, groups=32):
+    """numpy float32 emulation of csrc/groupnorm.cu's fp32 statistics, in the
+    kernel's order: per slice, shifted sums by fixed-channel threads, rows
+    added in order, per-channel (mean, M2), channels of a group joined
+    exactly; then the last block's fixed-order Chan merge over the slices.
+    Returns (mean, var) per (sample, group)."""
+    b, hw, c = x.shape
+    _, nv, rows = tgn.thread_layout(c, 4)
+    slices, per = tgn.partition_pixels(b, hw)
+    cg = c // groups
+    threads = nv * rows
+    mean = np.zeros((b, groups), np.float32)
+    var = np.zeros((b, groups), np.float32)
+    for i in range(b):
+        parts = []
+        for s in range(slices):
+            p0, p1 = s * per, min(hw, (s + 1) * per)
+            xs = x[i, p0:p1]
+            shift = xs[0]
+            a1 = np.zeros((rows, c), np.float32)
+            a2 = np.zeros((rows, c), np.float32)
+            for k in range(-(-(p1 - p0) // rows)):  # thread row r: pixel k*rows + r
+                blk = xs[k * rows:(k + 1) * rows] - shift
+                a1[:len(blk)] += blk
+                a2[:len(blk)] += blk * blk
+            t1 = np.zeros(c, np.float32)
+            t2 = np.zeros(c, np.float32)
+            for r in range(rows):
+                t1 += a1[r]
+                t2 += a2[r]
+            n_p = np.float32(p1 - p0)
+            mc = shift + t1 / n_p
+            m2c = np.maximum(t2 - t1 * (t1 / n_p), np.float32(0))
+            mg = mc.reshape(groups, cg).sum(-1, dtype=np.float32) / np.float32(cg)
+            dev = mc.reshape(groups, cg) - mg[:, None]
+            m2g = (m2c.reshape(groups, cg) + n_p * dev * dev).sum(-1, dtype=np.float32)
+            parts.append((n_p * cg, mg, m2g))
+        lanes = threads // groups  # threads per group in the final merge
+        for g in range(groups):
+            acc = []
+            for lane in range(lanes):
+                st = (np.float32(0), np.float32(0), np.float32(0))
+                for s in range(lane, slices, lanes):
+                    st = _chan(st, (np.float32(parts[s][0]), parts[s][1][g], parts[s][2][g]))
+                acc.append(st)
+            st = (np.float32(0), np.float32(0), np.float32(0))
+            for a in acc:
+                st = _chan(st, a)
+            mean[i, g] = st[1]
+            var[i, g] = st[2] / np.float32(hw * cg)
+    return mean, var
+
+
+def test_chan_merge_emulation_matches_two_pass_on_high_mean():
+    """The kernel's one-read fp32 statistics (emulated in float32) match the
+    two-pass centred statistics of the plain version on the high-mean case,
+    where the one-pass E[x^2]-mean^2 does not."""
+    rng = np.random.default_rng(5)
+    b, h, w, c = 2, 16, 16, 64
+    x = (rng.standard_normal((b, h * w, c)) * 0.03 + 100.0).astype(np.float32)
+    mean, var = _kernel_fp32_stats(x)
+    x64 = x.astype(np.float64).reshape(b, h * w, 32, 2)
+    mu = x64.mean(axis=(1, 3))
+    v = ((x64 - mu[:, None, :, None]) ** 2).mean(axis=(1, 3))
+    # the normalised values the two statistics give differ by < 1e-3
+    np.testing.assert_allclose(mean, mu, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(var, v, rtol=1e-3)
+    got = (x64 - mean[:, None, :, None]) / np.sqrt(var[:, None, :, None] + 1e-5)
+    plain = _port(x.reshape(b, h, w, c), np.ones(c, np.float32), np.zeros(c, np.float32),
+                  None, None, False)
+    np.testing.assert_allclose(got.reshape(b, h, w, c), plain, atol=1e-3)
+    # the one-pass form in float32 loses the variance here
+    xf = x.reshape(b, h * w, 32, 2)
+    one_pass = (xf * xf).mean(axis=(1, 3), dtype=np.float32) - xf.mean(axis=(1, 3), dtype=np.float32) ** 2
+    assert np.abs(one_pass - v).max() > 10 * np.abs(var - v).max()
+
+
+def test_misaligned_x_is_refused_before_any_build(monkeypatch):
+    from diffpir_tpu_torch.kernels import build
+
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(build, "load_library", no_build)
+    n = 4 * 4 * 64
+    flat = torch.zeros(n + 4)
+    assert flat.data_ptr() % 16 == 0
+    ones, zeros = torch.ones(64), torch.zeros(64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tgn.check_inputs(flat[1:1 + n].view(1, 4, 4, 64), ones, zeros)
+    assert tgn.check_inputs(flat[4:].view(1, 4, 4, 64), ones, zeros) == (4, 16, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tgn.check_inputs(torch.zeros((1, 4, 4, 36), dtype=torch.bfloat16),
+                         torch.ones(36), torch.zeros(36), num_groups=4)
+
+
+def test_ticket_counters_are_never_made_during_graph_capture(monkeypatch):
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(tgn, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    capturing[0] = True
+    with pytest.raises(RuntimeError, match="before the CUDA-graph capture"):
+        tgn._counters(dev, 7, 4)
+    assert tgn._COUNTERS == {}
+    capturing[0] = False
+    buf = tgn._counters(dev, 7, 4)
+    assert buf.dtype == torch.int32 and buf.numel() >= 4 and not buf.any()
+    capturing[0] = True
+    assert tgn._counters(dev, 7, 4) is buf            # made before: reused
+    with pytest.raises(RuntimeError, match="before the CUDA-graph capture"):
+        tgn._counters(dev, 7, buf.numel() + 1)          # would have to grow
+    with pytest.raises(RuntimeError, match="before the CUDA-graph capture"):
+        tgn._counters(dev, 8, 4)                        # another stream

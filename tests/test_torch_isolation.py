@@ -113,3 +113,41 @@ def test_ctypes_signatures_match_the_c_sources():
             assert is_ptr == (argtype is build.ctypes.c_void_p), (name, param)
             if "float" in param and not is_ptr:
                 assert argtype is build.ctypes.c_float, (name, param)
+
+
+def test_resolve_model_runs_on_the_cpu_only_when_asked(monkeypatch):
+    from diffpir_tpu_torch.models import zoo
+
+    res = zoo.resolve_model("tiny_demo32", os.path.join(ROOT, "model_zoo"),
+                            device="cpu")
+    assert res.provenance == "demo"
+    assert {p.device.type for p in res.model.parameters()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.resolve_model("tiny_demo32", os.path.join(ROOT, "model_zoo"))
+
+
+def test_spill_report_is_read_from_the_ptxas_log():
+    log = ("ptxas info    : Used 128 registers, used 1 barriers\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n")
+    assert build.spill_bytes(log) == 20
+    assert build.spill_bytes(log.splitlines()[1]) == 0
+    with pytest.raises(ValueError, match="no ptxas spill report"):
+        build.spill_bytes("")
+
+
+def test_profile_nfe_classes_kernels_and_needs_a_card(monkeypatch):
+    from diffpir_tpu_torch import profile_nfe
+
+    assert profile_nfe.classify("gn_stats<bf16, false>") == "groupnorm"
+    assert profile_nfe.classify("void attn_bf16<64, 2>(...)") == "attention"
+    assert profile_nfe.classify("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
+    assert profile_nfe.classify("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
+    assert profile_nfe.classify("elementwise_kernel") == "other"
+    # busy time is the union of the intervals: overlaps count once
+    assert profile_nfe.busy_us([(5, 9), (0, 2), (1, 3), (6, 7), (10, 10.5)]) == 7.5
+    assert profile_nfe.busy_us([]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_nfe.main([])
