@@ -12,8 +12,9 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
   build      nvcc builds the kernels from diffpir_tpu_torch/kernels/csrc;
              ptxas must report no spills
   kernels    every CUDA kernel against its plain PyTorch version on the card,
-             at every shape three paths give it: demo64 and DEMO256 (below)
-             in fp32 and bf16, and the diffusion_ffhq_10m topology (bf16,
+             at every shape four paths give it: demo32 (tiny_demo32, heads of
+             16), demo64 and DEMO256 (below) in fp32 and bf16, and the
+             diffusion_ffhq_10m topology (bf16,
              batch 16, 256 px, seeded random weights: bench.py's workload) in
              bf16 alone, since its fp32 copies of the 0.5 GB cases would
              double the phase.  Each case is run twice and must repeat bit
@@ -27,6 +28,15 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              configs/demo64_inpaint.yaml (trained demo64_hq prior, fp32, 4
              images, 50 NFE): PSNR against the JAX package's, launch counts,
              and the same restore with the plain versions
+  tasks      the CLI on each path of TASK_RUNS: demo64 deblur (Levin09
+             k0), demo64 SR x2 in the blur, classical and cubic modes, demo32
+             inpaint (heads of 16), and the 54M trained prior's demo256
+             deblur, SR x4 and inpaint at 100 NFE in bf16.  Each must load
+             the trained weights, come within PSNR_TOL_DB of the JAX
+             package's PSNR, launch the kernels per forward times forwards,
+             and come within PLAIN_PSNR_TOL_DB of a rerun with the plain
+             versions; one more run times ms per NFE with the prox's share
+             (CUDA events around each prox call)
   flagship   the DEMO256 topology (bf16, 256 px, batch 4, 20 NFE, seeded
              random weights) on testsets/demo256 with a 50% random mask,
              kernels against plain versions, ms per NFE
@@ -65,6 +75,47 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 JAX_DEMO64_PSNR = 45.42825711745008
 PSNR_TOL_DB = 0.5
 PLAIN_PSNR_TOL_DB = 0.05
+
+# Mean PSNR of the JAX package on the CPU for each run of phase tasks, each
+# from the command above it (with --set save_E=false --set save_L=false).
+#   python main_ddpir.py --opt configs/demo64_deblur.yaml --cpu --no-sweep
+JAX_DEMO64_DEBLUR_PSNR = 43.131496035679596
+#   python main_ddpir.py --opt configs/demo64_sisr.yaml --cpu --no-sweep
+JAX_DEMO64_SISR_BLUR_PSNR = 42.640470772054584
+#   python main_ddpir.py --opt configs/demo64_sisr.yaml --cpu --no-sweep \
+#       --set sr_mode=classical
+JAX_DEMO64_SISR_CLASSICAL_PSNR = 43.371566173001995
+# cubic SR at this operating point barely sees y (11-13 dB): one run's PSNR
+# moves by up to 2 dB with the seed, so both packages are held by their mean
+# over CUBIC_SEEDS seeds, each run as
+#   python main_ddpir.py --opt configs/demo64_sisr.yaml --cpu --no-sweep \
+#       --set sr_mode=cubic --set seed=<42 .. 73>
+# (the JAX runs: min 10.8724, max 13.1333, standard deviation 0.5753 dB)
+CUBIC_SEEDS = 32
+JAX_DEMO64_SISR_CUBIC_PSNR = 11.842025094216517
+#   python main_ddpir.py --opt configs/demo32_inpaint.yaml --cpu --no-sweep
+JAX_DEMO32_INPAINT_PSNR = 34.953652564655215
+#   python main_ddpir.py --opt configs/demo256_deblur.yaml --cpu --no-sweep
+JAX_DEMO256_DEBLUR_PSNR = 44.456662192940875
+#   python main_ddpir.py --opt configs/demo256_sisr.yaml --cpu --no-sweep
+JAX_DEMO256_SISR_PSNR = 41.437732040677446
+#   python main_ddpir.py --opt configs/demo256_inpaint.yaml --cpu --no-sweep
+JAX_DEMO256_INPAINT_PSNR = 47.18845326994437
+# (name, config, overrides, the JAX package's PSNR, seeds it is a mean over,
+# from the config's seed on)
+TASK_RUNS = (
+    ("demo64_deblur", "configs/demo64_deblur.yaml", {}, JAX_DEMO64_DEBLUR_PSNR, 1),
+    ("demo64_sisr_blur", "configs/demo64_sisr.yaml", {}, JAX_DEMO64_SISR_BLUR_PSNR, 1),
+    ("demo64_sisr_classical", "configs/demo64_sisr.yaml", {"sr_mode": "classical"},
+     JAX_DEMO64_SISR_CLASSICAL_PSNR, 1),
+    ("demo64_sisr_cubic", "configs/demo64_sisr.yaml", {"sr_mode": "cubic"},
+     JAX_DEMO64_SISR_CUBIC_PSNR, CUBIC_SEEDS),
+    ("demo32_inpaint", "configs/demo32_inpaint.yaml", {}, JAX_DEMO32_INPAINT_PSNR, 1),
+    ("demo256_deblur", "configs/demo256_deblur.yaml", {}, JAX_DEMO256_DEBLUR_PSNR, 1),
+    ("demo256_sisr", "configs/demo256_sisr.yaml", {}, JAX_DEMO256_SISR_PSNR, 1),
+    ("demo256_inpaint", "configs/demo256_inpaint.yaml", {}, JAX_DEMO256_INPAINT_PSNR,
+     1),
+)
 
 # Kernel against plain version on the card: the JAX package's own test
 # tolerances (tests/test_pallas_groupnorm.py, tests/test_pallas_attention.py).
@@ -384,6 +435,11 @@ def run(argv: list[str]) -> int:
     with phase("kernels"):
         # the calls one forward makes on each path, recorded with the plain
         # versions
+        demo32 = zoo.resolve_model("tiny_demo32", "model_zoo", dtype=torch.float32,
+                                   device=dev, kernels="plain").model
+        calls32 = record_kernel_calls(
+            demo32, torch.randn((4, 32, 32, 3), generator=gen, device=dev), t_probe)
+        del demo32
         demo64 = zoo.resolve_model("demo64_hq", "model_zoo", dtype=torch.float32,
                                    device=dev, kernels="plain").model
         calls64 = record_kernel_calls(
@@ -402,13 +458,14 @@ def run(argv: list[str]) -> int:
             t_probe.repeat(4))
         del ffhq
         torch.cuda.empty_cache()
-        paths = (("demo64", calls64), ("demo256", calls256), ("ffhq b16", callsffhq))
+        paths = (("demo32", calls32), ("demo64", calls64), ("demo256", calls256),
+                 ("ffhq b16", callsffhq))
         for name, calls in paths:
             log(f"{name}: {sum(c[0] == 'gn' for c in calls)} GroupNorm and "
                 f"{sum(c[0] == 'attn' for c in calls)} attention calls per forward")
 
         gn_keys, attn_keys = set(), set()
-        for calls, dtypes in ((calls64 + calls256, ("float32", "bfloat16")),
+        for calls, dtypes in ((calls32 + calls64 + calls256, ("float32", "bfloat16")),
                               (callsffhq, ("bfloat16",))):
             for c in calls:
                 for dt in dtypes:
@@ -429,7 +486,7 @@ def run(argv: list[str]) -> int:
             r = results[("gn",) + key] = gn_case(*key, gen)
             log(f"groupnorm_silu shape={key[0]} {key[1]} film={key[2]} silu={key[3]}: "
                 f"max_abs_err={r['err']:.3e} repeats={r['repeats']} {columns(r)} "
-                f"bound_ms={bound(r)[0]:.4f}"
+                f"bound_ms={bound(r)[0]:.4e}"
                 + ("" if r["ok"] and r["repeats"] else "  FAIL"))
             if not (r["ok"] and r["repeats"]):
                 failures.append(("groupnorm_silu",) + key)
@@ -438,7 +495,7 @@ def run(argv: list[str]) -> int:
             log(f"legacy_qkv_attention B={key[0]} T={key[1]} heads={key[2]} ch={key[3]} "
                 f"{key[4]}: max_abs_err={r['err']:.3e} repeats={r['repeats']} "
                 f"{columns(r)} (library err {r['library_err']:.2e}) "
-                f"bound_ms={bound(r)[0]:.4f}"
+                f"bound_ms={bound(r)[0]:.4e}"
                 + ("" if r["ok"] and r["repeats"] else "  FAIL"))
             if not (r["ok"] and r["repeats"]):
                 failures.append(("legacy_qkv_attention",) + key)
@@ -531,6 +588,99 @@ def run(argv: list[str]) -> int:
             raise AssertionError(f"kernel and plain PSNR differ by {gap} dB")
         del kern_runner, plain_runner
 
+    with phase("tasks"):
+        per_forward_calls = {"tiny_demo32": calls32, "demo64_hq": calls64,
+                             "demo256": calls256}
+        task_launches = {}
+        for name, opt, over, jax_psnr, n_seeds in TASK_RUNS:
+            over = {"save_E": False, "save_L": False, **over}
+            argv = ["--opt", opt, "--no-sweep"]
+            for k, v in over.items():
+                argv += ["--set", f"{k}={v if isinstance(v, str) else json.dumps(v)}"]
+            cfg = load_config(opt, over)
+            calls = per_forward_calls[cfg.model_name]
+            forwards = (math.ceil(len(list_images(cfg.L_path)) / cfg.batch_size)
+                        * (cfg.iter_num - 1))
+            runs = n_seeds * forwards
+            want = {"groupnorm_silu": sum(c[0] == "gn" for c in calls) * runs,
+                    "legacy_qkv_attention": sum(c[0] == "attn" for c in calls) * runs}
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            res_seeds = [cli_main(argv + ["--set", f"seed={seed}"])[0]
+                         for seed in range(cfg.seed, cfg.seed + n_seeds)]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n_seeds
+            task_launches[name] = dict(LAUNCHES)
+            res = res_seeds[0]
+            psnr = float(np.mean([r["psnr"] for r in res_seeds]))
+            if task_launches[name] != want:
+                raise AssertionError(f"{name}: launches {task_launches[name]}, "
+                                     f"expected {want}")
+            if {r["weights"] for r in res_seeds} != {"demo"}:
+                raise AssertionError(f"{name}: weights are {res['weights']!r}, not the "
+                                     "trained prior under assets/demo")
+            if not abs(psnr - jax_psnr) <= PSNR_TOL_DB:
+                raise AssertionError(f"{name}: PSNR {psnr} (mean of {n_seeds} seeds) is "
+                                     f"not within {PSNR_TOL_DB} dB of the JAX package's "
+                                     f"{jax_psnr}")
+
+            plain_runner = Runner(cfg, device=dev, kernels="plain")
+            LAUNCHES.clear()
+            res_plain = plain_runner.evaluate()
+            if sum(LAUNCHES.values()):
+                raise AssertionError(f"{name}: the plain run launched kernels: "
+                                     f"{dict(LAUNCHES)}")
+            del plain_runner
+            gap = abs(res_plain["psnr"] - res["psnr"])
+            if not gap <= PLAIN_PSNR_TOL_DB:
+                raise AssertionError(f"{name}: kernel and plain PSNR differ by {gap} dB")
+
+            # one more run: ms per NFE, and the prox's share by CUDA events
+            # around each of its calls
+            runner = Runner(cfg, device=dev)
+            prox_events = []
+            make_prox = runner.make_prox
+
+            def timed_make_prox(*a, make_prox=make_prox, prox_events=prox_events):
+                prox = make_prox(*a)
+
+                def timed(x0, tau):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = prox(x0, tau)
+                    end.record()
+                    prox_events.append((start, end))
+                    return out
+
+                return timed
+
+            runner.make_prox = timed_make_prox
+            np.random.seed(cfg.seed)
+            batches = make_batches(prepare_images(cfg), cfg.batch_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for bi, b in enumerate(batches):
+                runner.restore_batch(b, seed=cfg.seed + bi)
+            torch.cuda.synchronize()
+            ms_nfe = (time.perf_counter() - t0) * 1e3 / forwards
+            prox_nfe = sum(a.elapsed_time(b) for a, b in prox_events) / forwards
+            del runner
+            torch.cuda.empty_cache()
+            spread = ""
+            if n_seeds > 1:
+                ps = [r["psnr"] for r in res_seeds]
+                spread = (f" (mean of seeds {cfg.seed}..{cfg.seed + n_seeds - 1}: min "
+                          f"{min(ps):.4f}, max {max(ps):.4f}, std {np.std(ps):.4f})")
+            log(f"task {name}: {cfg.task} {cfg.sr_mode if cfg.task == 'sr' else ''} "
+                f"{cfg.model_name} {cfg.dtype} weights={res['weights']} PSNR "
+                f"{psnr:.4f} dB{spread} (JAX CPU {jax_psnr:.4f}); seed {cfg.seed} "
+                f"{res['psnr']:.4f}, plain {res_plain['psnr']:.4f} (gap {gap:.4f}), SSIM "
+                f"{res['ssim']:.4f}, CLI {wall:.3f}s, {forwards} forwards, launches "
+                f"{task_launches[name]}; timed run {ms_nfe:.4f} ms per NFE: prox "
+                f"{prox_nfe:.4f} ms ({len(prox_events)} calls), UNet and renoise "
+                f"{ms_nfe - prox_nfe:.4f} ms")
+
     with phase("flagship"):
         fcfg = load_config("configs/demo256_inpaint.yaml", {
             "save_E": False, "save_L": False, "iter_num": 20, "batch_size": 4,
@@ -563,7 +713,7 @@ def run(argv: list[str]) -> int:
         def trajectory(route):
             g = torch.Generator(device=dev).manual_seed(0)
             noise = sampler.generator_noise(g, dev)
-            x = sampler.init_x(y, mask, noise(-1, 0, "init", tuple(y.shape)),
+            x = sampler.init_x("inpaint", y, mask, 1, noise(-1, 0, "init", tuple(y.shape)),
                                sqrt_acp_start=sa0, sqrt_1m_acp_start=s1m0)
             den = sampler.make_denoiser(models[route], sched,
                                         compute_dtype=torch.bfloat16)
@@ -608,6 +758,9 @@ def run(argv: list[str]) -> int:
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_launches.get(name, 0),
+            "launches_per_path": {"main demo64_inpaint": main_launches.get(name, 0),
+                                  **{f"tasks {t}": n.get(name, 0)
+                                     for t, n in task_launches.items()}},
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
@@ -618,6 +771,7 @@ def run(argv: list[str]) -> int:
                      "(demo64_hq, fp32, batch 4, 64 px); ms, plain_ms, library_ms "
                      "by CUDA-graph replay (device), *_dispatch_ms by back-to-back "
                      "calls",
+            "demo32_per_forward": per_fwd[("demo32", kind)],
             "flagship_per_forward": per_fwd[("demo256", kind)],
             "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)]})
     log(json.dumps(record))

@@ -27,7 +27,7 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
            "attention_rows_per_block", "check_inputs"]
 
-KERNEL_HEAD_CHANNELS = (32, 64)
+KERNEL_HEAD_CHANNELS = (16, 32, 64)
 # query tiles the kernel takes, largest first: bf16 warps own 16 rows (tiles
 # of 16, 32) or 32 rows (64, 128); fp32 warps own 8 rows, at most 256 threads
 ROWS_PER_BLOCK = {True: (128, 64, 32, 16), False: (64, 32, 16)}

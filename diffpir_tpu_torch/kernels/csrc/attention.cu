@@ -9,8 +9,8 @@
 // (as diffpir_tpu/models/unet.py:238 rounds the weights before P.V) and the
 // row sum divides the fp32 accumulator at the end.
 //
-// Bound on this card: at the UNet's shapes (T <= 1024, ch 32 or 64) the least
-// time is set by bytes (bf16) or by operations (fp32): one (b, head) pair
+// Bound on this card: at the UNet's shapes (T <= 1024, ch 16, 32 or 64) the
+// least time is set by bytes (bf16) or by operations (fp32): one (b, head) pair
 // reads 3*T*ch and writes T*ch elements and does 4*T*T*ch operations, under
 // 300 operations per byte up to T = 1024.  In practice the bf16 kernel is held
 // by latency and by its shared-memory and exp2 throughput per SM, not by the
@@ -19,9 +19,9 @@
 //
 // Design, bf16 (attn_bf16): flash attention on tensor cores.  A block takes
 // one (batch*head, query tile of 16 to 128 rows); each warp owns 16 or 32
-// query rows, held as mma.sync A fragments loaded straight from the legacy
-// layout (32 rows per warp halve the shared-memory reads per row: every K and
-// V fragment feeds two products).  Key and value tiles of 64 rows are copied
+// query rows (16 at ch 16), held as mma.sync A fragments loaded straight from
+// the legacy layout (32 rows per warp halve the shared-memory reads per row:
+// every K and V fragment feeds two products).  Key and value tiles of 64 rows are copied
 // with 16-byte cp.async, double buffered, from row stride 3C at offsets
 // h*3ch+ch and h*3ch+2ch (no transpose copy), into rows padded by 16 bytes so
 // that ldmatrix reads them without bank conflicts (ldmatrix.trans for V).
@@ -34,8 +34,8 @@
 // Design, fp32 (attn_f32): the fp32 tolerance rules out TF32, so this path
 // stays on CUDA cores, where shared memory feeds a lane 32 floats per SM
 // clock against 128 FMAs: each value read must serve several rows.  Eight
-// lanes share two query rows: at ch 32 four split the keys of a tile and two
-// the channels, at ch 64 two and four (16-byte chunks interleaved, dot
+// lanes share two query rows: at ch 16 and 32 four split the keys of a tile
+// and two the channels, at ch 64 two and four (16-byte chunks interleaved, dot
 // products joined by shuffles).  Each thread keeps 16 q and 16 accumulator
 // values per row in registers, uses every K and V value it reads for both
 // rows, and keeps its own running (max, sum) per row; the key-split lanes are
@@ -203,19 +203,36 @@ attn_bf16(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out
     const __nv_bfloat16* Vt = Kt + TILE;
 
     // S = Q K^T: matrix lm of an x4 load covers keys 8j..8j+7, channels 8*lm..
+    // (ch >= 32); at ch 16 one x4 load covers two n-tiles, keys
+    // 8(j + lm/2) .., channels 8(lm%2) ..
     float s[MT][NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+    if constexpr (CH == 16) {
 #pragma unroll
-      for (int c0 = 0; c0 < CH; c0 += 32) {
+      for (int j = 0; j < NT; j += 2) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, Kt + (8 * j + lr) * LD + c0 + 8 * lm);
+        ldmatrix_x4(kb, Kt + (8 * (j + (lm >> 1)) + lr) * LD + 8 * (lm & 1));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][j], qa[mt][c0 / 16], kb[0], kb[1]);
-          mma_bf16(s[mt][j], qa[mt][c0 / 16 + 1], kb[2], kb[3]);
+          mma_bf16(s[mt][j], qa[mt][0], kb[0], kb[1]);
+          mma_bf16(s[mt][j + 1], qa[mt][0], kb[2], kb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int c0 = 0; c0 < CH; c0 += 32) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, Kt + (8 * j + lr) * LD + c0 + 8 * lm);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][j], qa[mt][c0 / 16], kb[0], kb[1]);
+            mma_bf16(s[mt][j], qa[mt][c0 / 16 + 1], kb[2], kb[3]);
+          }
         }
       }
     }
@@ -330,13 +347,16 @@ constexpr int kChunkf = 8;  // keys per thread between softmax rescales
 
 // Eight lanes share two query rows: KS lanes split the keys of a tile and
 // CS = 8 / KS lanes its channels, CPT = CH / CS each (16-byte chunks
-// interleaved).  Each loaded K or V value serves both rows.
+// interleaved).  Each loaded K or V value serves both rows.  ch 16 splits as
+// ch 32 does, with 8 channels (two chunks) per thread; KS stays at most 4 so
+// that each thread's keys per tile (kBKf / KS) fill whole kChunkf chunks.
 template <int CH>
 struct F32Split {
-  static constexpr int KS = CH == 32 ? 4 : 2;
+  static constexpr int KS = CH == 64 ? 2 : 4;
   static constexpr int CS = 8 / KS;
-  static constexpr int CPT = CH / CS;          // channels per thread (16)
+  static constexpr int CPT = CH / CS;          // channels per thread (8 or 16)
   static constexpr int LD = CH + 4 * CS;       // padded row, in floats
+  static_assert(CPT % 4 == 0 && (kBKf / KS) % kChunkf == 0, "bad fp32 split");
 };
 
 template <int CH>
@@ -497,19 +517,27 @@ attn_f32(const float* __restrict__ qkv, float* __restrict__ out, int T_, int H,
 template <int CH>
 cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
                    bool bf16, cudaStream_t st) {
-  const dim3 grid((T_ + rows - 1) / rows, B * H);
   const float scale_log2 = kLog2e / sqrtf((float)CH);
   if (bf16) {
+    // at ch 16 warps own 16 rows (ptxas spills the 32-row variant), so a
+    // tile of 128 rows runs as two blocks of 64
+    if (CH == 16 && rows > 64) rows = 64;
+    const dim3 grid((T_ + rows - 1) / rows, B * H);
     const int ntiles = (T_ + kBKb - 1) / kBKb;
     const int stages = ntiles < kStagesb ? ntiles : kStagesb;
     const size_t smem = (size_t)stages * 2 * kBKb * (CH + 8) * sizeof(__nv_bfloat16);
     const auto* q = static_cast<const __nv_bfloat16*>(qkv);
     auto* o = static_cast<__nv_bfloat16*>(out);
-    if (rows >= kMt2Rows)  // 32 query rows per warp
-      attn_bf16<CH, 2><<<grid, rows, smem, st>>>(q, o, T_, H, scale_log2, stages);
-    else                   // 16 query rows per warp
-      attn_bf16<CH, 1><<<grid, 2 * rows, smem, st>>>(q, o, T_, H, scale_log2, stages);
+    if constexpr (CH >= 32) {
+      if (rows >= kMt2Rows) {  // 32 query rows per warp
+        attn_bf16<CH, 2><<<grid, rows, smem, st>>>(q, o, T_, H, scale_log2, stages);
+        return cudaGetLastError();
+      }
+    }
+    // 16 query rows per warp
+    attn_bf16<CH, 1><<<grid, 2 * rows, smem, st>>>(q, o, T_, H, scale_log2, stages);
   } else {  // 8 query rows per warp
+    const dim3 grid((T_ + rows - 1) / rows, B * H);
     attn_f32<CH><<<grid, 4 * rows, 0, st>>>(static_cast<const float*>(qkv),
                                             static_cast<float*>(out), T_, H, scale_log2);
   }
@@ -518,7 +546,7 @@ cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
 
 }  // namespace
 
-// Returns a cudaError_t.  ch must be 32 or 64, rows (query rows per block)
+// Returns a cudaError_t.  ch must be 16, 32 or 64, rows (query rows per block)
 // 16, 32, 64 or (bf16 only) 128, and qkv and out 16-byte aligned.
 extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
                                             int T, int heads, int ch, int rows,
@@ -528,6 +556,7 @@ extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
       (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ch == 16) return (int)launch<16>(qkv, out, B, T, heads, rows, is_bf16, st);
   if (ch == 32) return (int)launch<32>(qkv, out, B, T, heads, rows, is_bf16, st);
   if (ch == 64) return (int)launch<64>(qkv, out, B, T, heads, rows, is_bf16, st);
   return (int)cudaErrorInvalidValue;

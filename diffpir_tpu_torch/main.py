@@ -1,10 +1,12 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m diffpir_tpu_torch.main --opt configs/demo64_inpaint.yaml --no-sweep \
+    python -m diffpir_tpu_torch.main --opt configs/demo64_deblur.yaml [--no-sweep] \
         [--set key=value ...] [--cpu] [--json]
 
-Runs on the CUDA card unless ``--cpu`` is given, and refuses to start when
-there is no card and ``--cpu`` was not asked for.  ``main(argv)`` can be
+Runs the config's task (deblur, sr or inpaint) on the CUDA card unless
+``--cpu`` is given, and refuses to start when there is no card and ``--cpu``
+was not asked for.  Without ``--no-sweep`` it evaluates every (lambda, zeta)
+of the reference's sweep (``runner.reference_sweep``).  ``main(argv)`` can be
 called in-process and returns the list of result dicts.
 """
 
@@ -22,8 +24,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--opt", type=str, required=True, help="Path to option YAML file.")
     p.add_argument("--no-sweep", action="store_true",
-                   help="run only the configured (lambda, zeta); for "
-                        "inpainting the reference's sweep is that one point")
+                   help="run only the configured (lambda, zeta), not the "
+                        "reference's sweep (deblur: one point at (7 lambda, "
+                        "3 zeta); sr: lambda times 2..12; inpaint: one point)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="config override (repeatable); VALUE is parsed as JSON "
                         "when it can be")
@@ -53,7 +56,16 @@ def main(argv=None) -> list[dict]:
         os.makedirs(cfg.E_path, exist_ok=True)
         shutil.copyfile(args.opt, os.path.join(cfg.E_path, "config.yaml"))
 
-    results = [Runner(cfg, device=device).evaluate()]
+    runner = Runner(cfg, device=device)
+    results = [runner.evaluate()] if args.no_sweep else runner.evaluate_sweep()
+    if len(results) > 1:
+        best = max(results, key=lambda r: r["psnr"])
+        print("sweep summary:")
+        for r in results:
+            mark = "  <-- best" if r is best else ""
+            print(f"  lambda={r['lambda_']:g} zeta={r['zeta']:g}: "
+                  f"{r['psnr']:.2f} dB"
+                  + (f" / SSIM {r['ssim']:.4f}" if r.get("ssim") else "") + mark)
     if args.json:
         json.dump(results, sys.stdout, indent=2, default=float)
         print()

@@ -1,10 +1,21 @@
-"""Inpainting masks (host-side numpy; reference ``utils/utils_inpaint.py:67-137``).
+"""Degradation helpers on the host (numpy and scipy): inpainting masks,
+blur kernels and the classical SR degradation.
 
-Copy of ``box_mask``/``random_mask``/``make_mask`` from
-``diffpir_tpu/ops/degrade.py``: the same numpy RNG draws in the same order, so
-a seed gives the JAX package's masks bit for bit.  The blur kernels and
-forward operators of that module belong to the deblur and SR tasks, which the
-port does not run yet.
+Copies of ``diffpir_tpu/ops/degrade.py``:
+
+  * ``box_mask``/``random_mask``/``make_mask`` == ``utils/utils_inpaint.py:67-137``:
+    the same numpy RNG draws in the same order, so a seed gives the JAX
+    package's masks bit for bit
+  * ``fspecial_gaussian``      == ``utils/utils_deblur.py:488-499``
+  * ``gaussian_psf``           == DPS ``Blurkernel`` gaussian init
+                                  (``utils_deblur.py:658-666``)
+  * ``shift_pixel``            == ``utils/utils_sisr.py:118-144``
+  * ``classical_degradation``  == ``utils/utils_sisr.py:100-114``
+
+``motion_psf`` is not ported: the JAX package rasterises it with Pillow,
+which the port does not use (ROADMAP.md queue A).  The on-device forward
+operators (``blur_circular``, ``blur_reflect``) belong to guidance and are
+not ported yet either.
 """
 
 from __future__ import annotations
@@ -13,7 +24,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["box_mask", "random_mask", "make_mask"]
+__all__ = ["box_mask", "random_mask", "make_mask", "fspecial_gaussian",
+           "gaussian_psf", "shift_pixel", "classical_degradation"]
 
 
 def box_mask(image_size=256, mask_len_range=(128, 129), margin=(16, 16),
@@ -72,3 +84,56 @@ def make_mask(mask_type: str, image_size=256, mask_len_range=(128, 129),
     if mask_type == "extreme":
         return 1.0 - box_mask(image_size, mask_len_range, margin, rng)
     raise ValueError(f"unknown mask_type: {mask_type}")
+
+
+def fspecial_gaussian(hsize: int, sigma: float) -> np.ndarray:
+    """MATLAB fspecial('gaussian'): truncated, normalized Gaussian."""
+    siz = (hsize - 1) / 2.0
+    y, x = np.mgrid[-siz:siz + 1, -siz:siz + 1]
+    h = np.exp(-(x * x + y * y) / (2.0 * sigma * sigma))
+    h[h < np.finfo(float).eps * h.max()] = 0
+    s = h.sum()
+    return h / s if s != 0 else h
+
+
+def gaussian_psf(kernel_size: int, std: float) -> np.ndarray:
+    """Impulse response of scipy's gaussian_filter (DPS Blurkernel 'gaussian')."""
+    from scipy.ndimage import gaussian_filter
+
+    n = np.zeros((kernel_size, kernel_size))
+    n[kernel_size // 2, kernel_size // 2] = 1.0
+    return gaussian_filter(n, sigma=std)
+
+
+def shift_pixel(x: np.ndarray, sf: int, upper_left: bool = True) -> np.ndarray:
+    """Half-pixel grid shift compensating classical sf-fold downsampling
+    (bilinear resample at coordinates shifted by (sf-1)/2, clipped at the
+    border)."""
+    from scipy.interpolate import RegularGridInterpolator
+
+    h, w = x.shape[:2]
+    shift = (sf - 1) * 0.5
+    xv, yv = np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64)
+    x1 = np.clip(xv + (shift if upper_left else -shift), 0, w - 1)
+    y1 = np.clip(yv + (shift if upper_left else -shift), 0, h - 1)
+    yy, xx = np.meshgrid(y1, x1, indexing="ij")
+    pts = np.stack([yy.ravel(), xx.ravel()], axis=1)
+
+    def interp(ch):
+        f = RegularGridInterpolator((yv, xv), ch, method="linear")
+        return f(pts).reshape(h, w)
+
+    if x.ndim == 2:
+        return interp(x)
+    out = x.copy().astype(np.float64)
+    for c in range(x.shape[-1]):
+        out[:, :, c] = interp(x[:, :, c].astype(np.float64))
+    return out
+
+
+def classical_degradation(x: np.ndarray, k: np.ndarray, sf: int = 3) -> np.ndarray:
+    """Blur (wrap) + strided subsample."""
+    from scipy import ndimage
+
+    y = ndimage.convolve(x, np.expand_dims(k, axis=2), mode="wrap")
+    return y[::sf, ::sf, ...]

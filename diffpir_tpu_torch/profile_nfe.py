@@ -76,7 +76,7 @@ def main(argv=None) -> dict:
 
     def trajectory():
         noise = sampler.generator_noise(gen, dev)
-        x = sampler.init_x(y, mask, noise(-1, 0, "init", shape),
+        x = sampler.init_x("inpaint", y, mask, 1, noise(-1, 0, "init", shape),
                            sqrt_acp_start=float(sched.sqrt_alphas_cumprod[-1]),
                            sqrt_1m_acp_start=float(np.sqrt(1 - sched.alphas_cumprod[-1])))
         return sampler.diffpir_sample(den, sampler.make_inpaint_prox(y, mask), plan, x,

@@ -1,12 +1,14 @@
 """Evaluation runner: dataset -> degrade -> restore -> metrics -> artifacts.
 
-Port of the inpainting, DiffPIR-mode path of ``diffpir_tpu/runner.py``
-(``Runner.__init__``, ``_plan``, the restore function at ``:226-313``,
-``restore_batch`` and ``evaluate``; reference ``main_ddpir.py:172-595``).
-Metrics: batched PSNR on [-1,1] with max_pixel=2, the reference's PSNR-Y
-composition and SSIM.  Restored and degraded images are written as PNGs
-under ``results/<result_name>/`` when ``save_E``/``save_L`` are set.  The
-device mesh, AOT export and the other tasks and modes are not ported yet.
+Port of the DiffPIR-mode path of ``diffpir_tpu/runner.py`` for deblurring,
+super-resolution (blur, cubic and classical) and inpainting
+(``reference_sweep``, ``Runner.__init__``, ``_plan``, the restore function
+at ``:226-313``, ``restore_batch``, ``evaluate`` and ``evaluate_sweep``;
+reference ``main_ddpir.py:172-595``).  Metrics: batched PSNR on [-1,1] with
+max_pixel=2, the reference's PSNR-Y composition and SSIM.  Restored and
+degraded images are written as PNGs under ``results/<result_name>/`` when
+``save_E``/``save_L`` are set.  The device mesh, AOT export, guidance and the
+other trajectory modes are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from diffpir_tpu_torch import resolve_device
 from diffpir_tpu_torch.config import TaskConfig
 from diffpir_tpu_torch.data import Batch, make_batches, prepare_images
 from diffpir_tpu_torch.models.zoo import resolve_model
+from diffpir_tpu_torch.ops.fft_prox import precompute
 from diffpir_tpu_torch.sampler import (diffpir_sample, generator_noise, init_x,
-                                       make_denoiser, make_inpaint_prox)
+                                       make_cubic_sr_prox, make_denoiser,
+                                       make_fft_prox, make_inpaint_prox)
 from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan
 from diffpir_tpu_torch.utils import image as im
 
-__all__ = ["Runner", "setup_logger"]
+__all__ = ["Runner", "reference_sweep", "setup_logger"]
 
 
 def setup_logger(name: str, log_path: Optional[str] = None) -> logging.Logger:
@@ -52,10 +56,23 @@ def setup_logger(name: str, log_path: Optional[str] = None) -> logging.Logger:
     return lg
 
 
+def reference_sweep(cfg: TaskConfig) -> list[tuple[float, float]]:
+    """(lambda, zeta) settings the reference's main() runs
+    (``main_ddpir.py:548-580``): SR sweeps lambda over {2..12}*lambda,
+    deblur runs at (7*lambda, 3*zeta), inpaint at (lambda, zeta)."""
+    if cfg.task == "sr":
+        return [(cfg.lambda_ * i, cfg.zeta) for i in range(2, 13)]
+    if cfg.task == "deblur":
+        return [(cfg.lambda_ * 7, cfg.zeta * 3)]
+    return [(cfg.lambda_, cfg.zeta)]
+
+
 def _check_supported(cfg: TaskConfig) -> None:
     unported = []
-    if cfg.task != "inpaint":
-        unported.append(f"task={cfg.task!r}")
+    if cfg.task in ("deblur", "sr") and not cfg.sub_1_analytic:
+        unported.append("sub_1_analytic=False (guidance)")
+    if cfg.task == "deblur" and cfg.use_DIY_kernel and cfg.blur_mode != "Gaussian":
+        unported.append(f"use_DIY_kernel with blur_mode={cfg.blur_mode!r}")
     if cfg.generate_mode != "DiffPIR":
         unported.append(f"generate_mode={cfg.generate_mode!r}")
     if cfg.model_output_type != "pred_xstart":
@@ -99,6 +116,14 @@ class Runner:
         self.noise_model_t = (
             self.schedule.sigma_to_t(2 * cfg.noise_level_model)
             if cfg.skip_noise_model_t else 0)
+        # deblur t_y init: y is taken as already noised to t_y
+        # (main_ddpir_deblur.py:227-231; see sampler.init_x)
+        self.ty_scale = None
+        if cfg.task == "deblur" and cfg.ty_init:
+            t_y = self.schedule.sigma_to_t(2 * cfg.noise_level_img)
+            self.ty_scale = (
+                float(self.schedule.sqrt_alphas_cumprod[t_y]),
+                float(np.sqrt(1 - self.schedule.alphas_cumprod[t_y])))
 
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         if self.device.type == "cuda" and self.dtype == torch.float32:
@@ -118,12 +143,32 @@ class Runner:
             t_start=self.t_start, noise_model_t=self.noise_model_t,
             rho_mode="xstart")
 
+    def make_prox(self, y: torch.Tensor, kernel: Optional[torch.Tensor],
+                  mask: torch.Tensor):
+        """The task's data prox ``prox(x0, tau)`` for the observations ``y``:
+        the masked average (inpaint), the FFT solve (deblur, sr blur and
+        classical) or cubic back-projection (sr cubic)."""
+        cfg = self.cfg
+        if cfg.task == "inpaint":
+            return make_inpaint_prox(y, mask, cfg.guidance_scale)
+        if cfg.task == "deblur" or cfg.sr_mode in ("blur", "classical"):
+            return make_fft_prox(precompute(y, kernel, cfg.sf), cfg.guidance_scale)
+        hr_hw = (y.shape[1] * cfg.sf, y.shape[2] * cfg.sf)
+        return make_cubic_sr_prox(y, cfg.sf, gamma=cfg.gamma, in_iter=cfg.inIter,
+                                  hr_hw=hr_hw)
+
     def restore(self, y: torch.Tensor, mask: torch.Tensor, lambda_: float,
-                zeta: float, seed: int, noise=None) -> torch.Tensor:
-        """Restore (B,H,W,C) observations ``y`` in [0,1] on the runner's
-        device; returns (B,H,W,C) fp32 in [0,1].  Noise comes from a
-        ``torch.Generator`` seeded with ``seed`` unless ``noise`` is given
-        (``sampler.diffpir_sample``; its initial draw is ``which="init"``)."""
+                zeta: float, seed: int, noise=None,
+                kernel: Optional[torch.Tensor] = None,
+                init: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Restore (B,h,w,C) observations ``y`` in [0,1] on the runner's
+        device; returns (B,H,W,C) fp32 in [0,1] (H = h*sf).  ``kernel`` is the
+        (B,kh,kw) blur of deblur and sr blur/classical; ``init``, where given,
+        replaces the task's x init in [0,1] before it is diffused to t_start
+        (the shifted upscale of sr classical, ``main_ddpir_sisr.py:243-248``).
+        Noise comes from a ``torch.Generator`` seeded with ``seed`` unless
+        ``noise`` is given (``sampler.diffpir_sample``; its initial draw is
+        ``which="init"``)."""
         cfg = self.cfg
         plan = self._plan(lambda_)
         if noise is None:
@@ -131,20 +176,30 @@ class Runner:
             noise = generator_noise(gen, self.device)
         sa0 = float(self.schedule.sqrt_alphas_cumprod[self.t_start])
         s1m0 = float(np.sqrt(1 - self.schedule.alphas_cumprod[self.t_start]))
-        x = init_x(y, mask, noise(-1, 0, "init", tuple(y.shape)),
-                   sqrt_acp_start=sa0, sqrt_1m_acp_start=s1m0)
-        prox = make_inpaint_prox(y, mask, cfg.guidance_scale)
-        return diffpir_sample(self.den, prox, plan, x, noise=noise, zeta=zeta,
-                              y=y, mask=mask, recover_known=cfg.recover_known)
+        b, h, w, c = y.shape
+        up = cfg.sf if cfg.task == "sr" else 1
+        n0 = noise(-1, 0, "init", (b, h * up, w * up, c))
+        if init is not None:
+            x = sa0 * (2.0 * init.float() - 1.0) + s1m0 * n0
+        else:
+            x = init_x(cfg.task, y, mask, cfg.sf, n0, sqrt_acp_start=sa0,
+                       sqrt_1m_acp_start=s1m0, ty=self.ty_scale)
+        inpaint = cfg.task == "inpaint"
+        return diffpir_sample(self.den, self.make_prox(y, kernel, mask), plan, x,
+                              noise=noise, zeta=zeta, y=y, mask=mask,
+                              recover_known=inpaint and cfg.recover_known)
 
     def restore_batch(self, batch: Batch, lambda_: Optional[float] = None,
                       zeta: Optional[float] = None, seed: int = 0) -> np.ndarray:
         """Restore one batch; returns float [0,1] (B,H,W,C) numpy."""
         lambda_ = self.cfg.lambda_ if lambda_ is None else lambda_
         zeta = self.cfg.zeta if zeta is None else zeta
-        y = torch.from_numpy(batch.img_L).to(self.device)
-        mask = torch.from_numpy(batch.mask).to(self.device)
-        out = self.restore(y, mask, lambda_, zeta, seed)
+
+        def dev(a):
+            return None if a is None else torch.from_numpy(a).to(self.device)
+
+        out = self.restore(dev(batch.img_L), dev(batch.mask), lambda_, zeta, seed,
+                           kernel=dev(batch.kernel), init=dev(batch.init))
         return out.cpu().numpy()
 
     def evaluate(self, lambda_: Optional[float] = None,
@@ -223,6 +278,7 @@ class Runner:
             "images_per_sec": n_imgs / wall if wall > 0 else 0.0,
             "lambda_": lambda_, "zeta": zeta,
             "device": str(self.device),
+            "weights": self.weights_provenance,
         }
         msg = (f"-----------> Average PSNR(RGB) of ({cfg.testset_name}): "
                f"{results['psnr']:.4f} dB")
@@ -230,3 +286,8 @@ class Runner:
             msg += f" | SSIM: {results['ssim']:.4f}"
         lg.info(msg + f" | {results['images_per_sec']:.3f} img/s")
         return results
+
+    def evaluate_sweep(self, **kw) -> list[dict]:
+        """``evaluate`` at each point of ``reference_sweep``."""
+        return [self.evaluate(lambda_=l, zeta=z, **kw)
+                for l, z in reference_sweep(self.cfg)]

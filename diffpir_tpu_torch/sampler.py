@@ -1,10 +1,11 @@
-"""The DiffPIR sampling trajectory for inpainting, as a Python loop of steps.
+"""The DiffPIR sampling trajectory, as a Python loop of steps.
 
-Port of the DiffPIR-mode inpainting path of ``diffpir_tpu/sampler.py``
-(``make_denoiser``/``denoise_x0`` at ``:53-89``, ``make_inpaint_prox`` at
-``:117-130``, the inpaint branch of ``init_x`` at ``:174-213`` and
-``diffpir_sample`` at ``:287-421``; reference loop ``main_ddpir.py:341-467``).
-Per step: one UNet denoise estimating x0 from x_t, the masked-average prox,
+Port of the DiffPIR-mode path of ``diffpir_tpu/sampler.py``
+(``make_denoiser``/``denoise_x0`` at ``:53-89``, the data proxes
+``make_inpaint_prox``, ``make_fft_prox`` and ``make_cubic_sr_prox`` at
+``:117-167``, ``init_x`` at ``:174-213`` and ``diffpir_sample`` at
+``:287-421``; reference loop ``main_ddpir.py:341-467``).
+Per step: one UNet denoise estimating x0 from x_t, the task's data prox,
 then the DDIM-like renoise to x_{t-1} controlled by (eta, zeta).  The JAX
 package runs steps 0..n-2 in one ``lax.scan``; here they are a Python loop
 that reads its per-step scalars from the host-side plan, so it never waits
@@ -29,10 +30,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diffpir_tpu_torch.ops.fft_prox import ProxOperator, prox_solve
+from diffpir_tpu_torch.ops.resize import Resizer2D
 from diffpir_tpu_torch.schedule import NoiseSchedule, TrajectoryPlan
 
 __all__ = ["Denoiser", "make_denoiser", "denoise_x0", "make_inpaint_prox",
-           "init_x", "generator_noise", "diffpir_sample"]
+           "make_fft_prox", "make_cubic_sr_prox", "init_x", "generator_noise",
+           "diffpir_sample"]
 
 NoiseFn = Callable[[int, int, str, tuple], torch.Tensor]
 
@@ -86,11 +90,68 @@ def make_inpaint_prox(y: torch.Tensor, mask: torch.Tensor,
     return prox
 
 
-def init_x(y: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor, *,
-           sqrt_acp_start: float, sqrt_1m_acp_start: float) -> torch.Tensor:
-    """Inpainting x_{t_start}: y*mask diffused to t_start with ``noise``
-    (reference ``main_ddpir.py:293-316``)."""
-    x = (y * mask).float()
+def make_fft_prox(op: ProxOperator, guidance_scale: float = 1.0) -> Callable:
+    """FFT closed-form prox for deblur and blur/classical SR
+    (``main_ddpir.py:395-400``)."""
+
+    def prox(x0: torch.Tensor, tau: float) -> torch.Tensor:
+        x0_p = prox_solve(x0 * 0.5 + 0.5, op, tau)
+        x0_p = x0_p * 2.0 - 1.0
+        return x0 + guidance_scale * (x0_p - x0)
+
+    return prox
+
+
+def make_cubic_sr_prox(y: torch.Tensor, sf: int, *, gamma: float = 0.01,
+                       in_iter: int = 1, hr_hw: tuple[int, int]) -> Callable:
+    """Iterative back-projection prox for cubic SR (``main_ddpir.py:401-406``):
+    down is the antialiased MATLAB-cubic 1/sf resize (reference ``Resizer``),
+    up is nearest x sf (``F.interpolate``'s default mode)."""
+    down = Resizer2D(hr_hw, 1.0 / sf)
+    y = y.float()
+
+    def up_nearest(v: torch.Tensor) -> torch.Tensor:
+        return v.repeat_interleave(sf, dim=1).repeat_interleave(sf, dim=2)
+
+    def prox(x0: torch.Tensor, tau: float) -> torch.Tensor:
+        for _ in range(in_iter):
+            x01 = x0 * 0.5 + 0.5
+            x01 = x01 + gamma * up_nearest(y - down(x01)) / (1.0 + tau)
+            x0 = x01 * 2.0 - 1.0
+        return x0
+
+    return prox
+
+
+def init_x(task: str, y: torch.Tensor, mask: Optional[torch.Tensor], sf: int,
+           noise: torch.Tensor, *, sqrt_acp_start: float, sqrt_1m_acp_start: float,
+           ty: Optional[tuple[float, float]] = None) -> torch.Tensor:
+    """x_{t_start} (reference ``main_ddpir.py:293-316``): the bicubic
+    ``cubic_torch`` upscale of y for sr, y for deblur, y*mask for inpaint,
+    diffused to t_start with ``noise`` (of the high-resolution shape).
+
+    ty: optional ``(sqrt_acp[t_y], sqrt_1m_acp[t_y])``; y is then taken as
+    already sitting at step t_y and diffused the rest of the way with the
+    effective alpha sae = sqrt_acp[t_start] / sqrt_acp[t_y]
+    (``main_ddpir_deblur.py:227-231``).
+    """
+    if task == "sr":
+        # torch's F.interpolate bicubic (a = -0.75, main_ddpir.py:295)
+        x = Resizer2D((y.shape[1], y.shape[2]), float(sf), kernel="cubic_torch",
+                      antialiasing=False)(y)
+    elif task == "deblur":
+        x = y
+    elif task == "inpaint":
+        x = y * mask
+    else:
+        raise ValueError(task)
+    x = x.float()
+    if ty is not None:
+        sqrt_acp_ty, sqrt_1m_acp_ty = ty
+        sae = sqrt_acp_start / sqrt_acp_ty
+        coef = float(np.sqrt(max(
+            sqrt_1m_acp_start**2 - sae**2 * sqrt_1m_acp_ty**2, 0.0)))
+        return sae * (2.0 * x - 1.0) + coef * noise
     return sqrt_acp_start * (2.0 * x - 1.0) + sqrt_1m_acp_start * noise
 
 

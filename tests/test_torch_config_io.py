@@ -242,6 +242,16 @@ def test_prepare_images_bit_for_bit(overrides):
 
 
 def test_prepare_images_refuses_unported_tasks():
-    cfg = tconfig.load_config(os.path.join(ROOT, "configs", "demo64_deblur.yaml"))
+    """What the port still refuses: DIY motion PSFs (Pillow-rasterised in the
+    JAX package) in the data path, and the gradient prox of
+    sub_1_analytic=false (guidance) in the Runner."""
+    path = os.path.join(ROOT, "configs", "demo64_deblur.yaml")
+    cfg = tconfig.load_config(path, dict(use_DIY_kernel=True, blur_mode="motion",
+                                         cwd=ROOT))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdata.prepare_images(cfg)
+    from diffpir_tpu_torch.runner import Runner
+
+    cfg = tconfig.load_config(path, dict(sub_1_analytic=False, cwd=ROOT))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Runner(cfg, device="cpu")
