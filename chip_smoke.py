@@ -31,12 +31,27 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
   tasks      the CLI on each path of TASK_RUNS: demo64 deblur (Levin09
              k0), demo64 SR x2 in the blur, classical and cubic modes, demo32
              inpaint (heads of 16), and the 54M trained prior's demo256
-             deblur, SR x4 and inpaint at 100 NFE in bf16.  Each must load
-             the trained weights, come within PSNR_TOL_DB of the JAX
-             package's PSNR, launch the kernels per forward times forwards,
-             and come within PLAIN_PSNR_TOL_DB of a rerun with the plain
-             versions; one more run times ms per NFE with the prox's share
-             (CUDA events around each prox call)
+             deblur, SR x4 and inpaint at 100 NFE in bf16; then every other
+             trajectory mode: demo64 inpaint repaint, vanilla, iter_num_U=2,
+             pred_x_prev with DDIM and log_process, demo64 deblur DPS_y0,
+             DPS_yt and the first-order prox, demo64 SR's first-order prox,
+             and demo256 (20 NFE) deblur DPS_y0, inpaint repaint with
+             iter_num_U=2 and inpaint pred_x_prev.  Each must load the
+             trained weights, come within PSNR_TOL_DB of the JAX package's
+             PSNR (a mean over seeds where one seed's PSNR moves by more),
+             launch the kernels per forward times the mode's forwards, enter
+             the autograd.Functions exactly where the mode differentiates
+             through the UNet (DPS_y0) and nowhere else, and come within
+             PLAIN_PSNR_TOL_DB of a rerun with the plain versions; one more
+             run times ms per NFE with the prox's share (CUDA events around
+             each prox call) and checks log_process's frames
+  grad       one DPS_y0 step, d||y - H(x0(x))||/dx, on demo64 (fp32) and
+             demo256 (bf16, batch 4) through the kernels' autograd.Functions
+             against the same gradient through the plain versions (relative
+             L2 and cosine), and a control with GroupNorm and attention
+             detached that must fail the same bounds; in bf16 both routes'
+             distance to the fp32 gradient (printed); event times of the
+             forward alone and of the forward and backward
   flagship   the DEMO256 topology (bf16, 256 px, batch 4, 20 NFE, seeded
              random weights) on testsets/demo256 with a 50% random mask,
              kernels against plain versions, ms per NFE
@@ -54,6 +69,7 @@ parent commit), so that two versions can be timed on one card in turns.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -101,6 +117,59 @@ JAX_DEMO256_DEBLUR_PSNR = 44.456662192940875
 JAX_DEMO256_SISR_PSNR = 41.437732040677446
 #   python main_ddpir.py --opt configs/demo256_inpaint.yaml --cpu --no-sweep
 JAX_DEMO256_INPAINT_PSNR = 47.18845326994437
+# The other trajectory modes, each from the command above it with
+# --set save_E=false --set save_L=false --no-compile-cache.
+#   python main_ddpir.py --opt configs/demo64_inpaint.yaml --cpu --no-sweep \
+#       --set generate_mode=repaint
+JAX_DEMO64_REPAINT_PSNR = 45.55653403775764  # seeds 42-57: 45.2161-46.2179
+#   python main_ddpir.py --opt configs/demo64_inpaint.yaml --cpu --no-sweep \
+#       --set generate_mode=vanilla
+JAX_DEMO64_VANILLA_PSNR = 14.022523842854316  # seeds 42-73: 12.9512-15.0871
+#   python main_ddpir.py --opt configs/demo64_inpaint.yaml --cpu --no-sweep \
+#       --set iter_num_U=2
+JAX_DEMO64_ITER_U2_PSNR = 46.19522039259486  # seeds 42-57: 45.8789-46.6167
+# pred_x_prev and DPS take one step of the base chain (t -> t-1) where the
+# plan jumps ~50 timesteps, so at these NFE they restore little in either
+# package (5-11 dB); the runs hold the port to that behaviour.
+#   python main_ddpir.py --opt configs/demo64_inpaint.yaml --cpu --no-sweep \
+#       --set model_output_type=pred_x_prev --set ddim_sample=true
+JAX_DEMO64_XPREV_DDIM_PSNR = 10.890555677312495
+#   python main_ddpir.py --opt configs/demo64_deblur.yaml --cpu --no-sweep \
+#       --set generate_mode=DPS_y0
+JAX_DEMO64_DPS_Y0_PSNR = 5.847043972514592
+# DPS_yt and the first-order prox need a noisy observation (sigma_y enters
+# their step size as 1/sigma_y^2; at noise_level_img 0 they diverge to NaN
+# or -18 dB in both packages), and the first-order prox a lambda at which
+# it restores (20; the analytic prox's 150 leaves it near the prior):
+#   python main_ddpir.py --opt configs/demo64_deblur.yaml --cpu --no-sweep \
+#       --set generate_mode=DPS_yt --set noise_level_img=12.75
+JAX_DEMO64_DPS_YT_PSNR = 7.514970561452527
+#   python main_ddpir.py --opt configs/demo64_deblur.yaml --cpu --no-sweep \
+#       --set sub_1_analytic=false --set noise_level_img=12.75 --set lambda_=20
+JAX_DEMO64_DEBLUR_GRAD_PSNR = 25.94008651906491  # seeds 42-57: 25.4922-26.4452
+#   python main_ddpir.py --opt configs/demo64_sisr.yaml --cpu --no-sweep \
+#       --set sub_1_analytic=false --set noise_level_img=12.75 --set lambda_=20
+JAX_DEMO64_SISR_GRAD_PSNR = 37.18207541819505  # seeds 42-57: 36.4223-37.9051
+#   python main_ddpir.py --opt configs/demo256_deblur.yaml --cpu --no-sweep \
+#       --set iter_num=20 --set generate_mode=DPS_y0
+JAX_DEMO256_DPS_Y0_PSNR = 5.581532512288286
+#   python main_ddpir.py --opt configs/demo256_inpaint.yaml --cpu --no-sweep \
+#       --set iter_num=20 --set generate_mode=repaint --set iter_num_U=2
+JAX_DEMO256_REPAINT_U2_PSNR = 45.66042670748715
+#   python main_ddpir.py --opt configs/demo256_inpaint.yaml --cpu --no-sweep \
+#       --set iter_num=20 --set model_output_type=pred_x_prev
+JAX_DEMO256_XPREV_PSNR = 10.474139087734825
+NOISY = {"noise_level_img": 12.75}
+# Where the trajectory's noise moves one seed's PSNR by tenths of a dB
+# (demo64 repaint, iter_num_U=2 and the first-order proxes; on seed 42 the
+# port's repaint was 45.1488 dB on the card against JAX's 45.6658), both
+# packages are held by their mean over MODE_SEEDS seeds (the JAX runs'
+# standard deviation over seeds 42-57: 0.21-0.37 dB); vanilla, a prior
+# sample where half the pixels are observed, by VANILLA_SEEDS (0.57 dB).
+# The JAX constants are means over the same seeds, each run as the command
+# above it with --set seed=<42 ..>.
+MODE_SEEDS = 16
+VANILLA_SEEDS = 32
 # (name, config, overrides, the JAX package's PSNR, seeds it is a mean over,
 # from the config's seed on)
 TASK_RUNS = (
@@ -115,7 +184,45 @@ TASK_RUNS = (
     ("demo256_sisr", "configs/demo256_sisr.yaml", {}, JAX_DEMO256_SISR_PSNR, 1),
     ("demo256_inpaint", "configs/demo256_inpaint.yaml", {}, JAX_DEMO256_INPAINT_PSNR,
      1),
+    ("demo64_repaint", "configs/demo64_inpaint.yaml", {"generate_mode": "repaint"},
+     JAX_DEMO64_REPAINT_PSNR, MODE_SEEDS),
+    ("demo64_vanilla", "configs/demo64_inpaint.yaml", {"generate_mode": "vanilla"},
+     JAX_DEMO64_VANILLA_PSNR, VANILLA_SEEDS),
+    ("demo64_iter_u2", "configs/demo64_inpaint.yaml", {"iter_num_U": 2},
+     JAX_DEMO64_ITER_U2_PSNR, MODE_SEEDS),
+    ("demo64_xprev_ddim", "configs/demo64_inpaint.yaml",
+     {"model_output_type": "pred_x_prev", "ddim_sample": True},
+     JAX_DEMO64_XPREV_DDIM_PSNR, 1),
+    # the same restore as phase main's: its frames are checked, not saved
+    ("demo64_progress", "configs/demo64_inpaint.yaml", {"log_process": True},
+     JAX_DEMO64_PSNR, 1),
+    ("demo64_dps_y0", "configs/demo64_deblur.yaml", {"generate_mode": "DPS_y0"},
+     JAX_DEMO64_DPS_Y0_PSNR, 1),
+    ("demo64_dps_yt", "configs/demo64_deblur.yaml",
+     {"generate_mode": "DPS_yt", **NOISY}, JAX_DEMO64_DPS_YT_PSNR, 1),
+    ("demo64_deblur_grad", "configs/demo64_deblur.yaml",
+     {"sub_1_analytic": False, "lambda_": 20, **NOISY}, JAX_DEMO64_DEBLUR_GRAD_PSNR,
+     MODE_SEEDS),
+    ("demo64_sisr_grad", "configs/demo64_sisr.yaml",
+     {"sub_1_analytic": False, "lambda_": 20, **NOISY}, JAX_DEMO64_SISR_GRAD_PSNR,
+     MODE_SEEDS),
+    ("demo256_dps_y0", "configs/demo256_deblur.yaml",
+     {"iter_num": 20, "generate_mode": "DPS_y0"}, JAX_DEMO256_DPS_Y0_PSNR, 1),
+    ("demo256_repaint_u2", "configs/demo256_inpaint.yaml",
+     {"iter_num": 20, "generate_mode": "repaint", "iter_num_U": 2},
+     JAX_DEMO256_REPAINT_U2_PSNR, 1),
+    ("demo256_xprev", "configs/demo256_inpaint.yaml",
+     {"iter_num": 20, "model_output_type": "pred_x_prev"}, JAX_DEMO256_XPREV_PSNR, 1),
 )
+# DPS_y0 gradient on the card: kernels' autograd.Functions against the
+# plain versions' autograd (relative L2 of the difference; cosine).  In bf16
+# each route's gradient is a few 1e-2 (relative L2) from the fp32 gradient of
+# the same weights and input (phase grad prints both), so two bf16 routes
+# cannot be held closer than that floor; kernel against plain reached 2.2e-2
+# at demo256 in one run of phase grad.  A lost gradient (the detached
+# control) is 0.68 or more away.
+GRAD_REL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+GRAD_MIN_COSINE = {"float32": 0.999, "bfloat16": 0.999}
 
 # Kernel against plain version on the card: the JAX package's own test
 # tolerances (tests/test_pallas_groupnorm.py, tests/test_pallas_attention.py).
@@ -216,6 +323,43 @@ def max_violation(got, ref, atol: float, rtol: float) -> tuple[float, bool]:
     diff = (got.float() - ref.float()).abs()
     ok = bool((diff <= atol + rtol * ref.float().abs()).all())
     return float(diff.max()), ok
+
+
+# entries into the kernels' autograd.Functions, by kernel (count_function_entries)
+FN_CALLS: collections.Counter = collections.Counter()
+
+
+def count_function_entries() -> None:
+    """Count each entry into a kernel's autograd.Function in FN_CALLS."""
+    from diffpir_tpu_torch.kernels import attention as kat
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+
+    for name, cls in (("groupnorm_silu", kgn.GroupNormSiLUFunction),
+                      ("legacy_qkv_attention", kat.LegacyQKVAttentionFunction)):
+        def apply(*args, _orig=cls.apply, _name=name):
+            FN_CALLS[_name] += 1
+            return _orig(*args)
+
+        cls.apply = apply
+
+
+def forwards_per_batch(cfg) -> int:
+    """UNet forwards of one batch's restore in the config's mode: every
+    step of pred_x_prev, all but the last of DPS, and all but the last times
+    iter_num_U of DiffPIR, repaint and vanilla.  A backward launches no
+    kernel."""
+    from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan
+
+    sched = NoiseSchedule.linear(cfg.beta_start, cfg.beta_end, cfg.num_train_timesteps)
+    t_start = (None if cfg.t_start_sigma is None
+               else sched.sigma_to_t(cfg.t_start_sigma))
+    n = build_plan(sched, iter_num=cfg.iter_num, skip_type=cfg.skip_type,
+                   t_start=t_start).n_steps
+    if cfg.model_output_type == "pred_x_prev":
+        return n
+    if cfg.generate_mode in ("DPS_y0", "DPS_yt"):
+        return n - 1
+    return (n - 1) * cfg.iter_num_U
 
 
 def smi_line() -> str:
@@ -354,6 +498,82 @@ def attn_case(b, t, heads, ch, dtype_name, gen):
                 **time_all(kernel=kern, plain=plain, library=library))
 
 
+def dps_grad_case(opt: str, over: dict, step: int, gen, dev):
+    """One DPS_y0 step of ``opt``'s first batch: g = d||y - H(x0(x_t))||/dx_t
+    at the plan's row ``step``, x_t diffused from the observation.  Returns
+    the gradients through the kernels' Functions, through the plain
+    versions, through the kernels with their Functions bypassed (the
+    outputs then carry no gradient: GroupNorm and attention detached) and,
+    for a bf16 config, through the plain versions in fp32; and event times
+    of the forward alone and of the forward and backward."""
+    import torch
+
+    from diffpir_tpu_torch import guidance
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.data import make_batches, prepare_images
+    from diffpir_tpu_torch.kernels import attention as kat
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+    from diffpir_tpu_torch.runner import Runner
+    from diffpir_tpu_torch.sampler import model_fn
+
+    cfg = load_config(opt, {"save_E": False, "save_L": False, **over})
+    np.random.seed(cfg.seed)
+    batch = make_batches(prepare_images(cfg), cfg.batch_size)[0]
+    y = torch.from_numpy(batch.img_L).to(dev)
+    kernel = torch.from_numpy(batch.kernel).to(dev)
+    op = guidance.make_degrade_op("deblur", kernel=kernel)
+    runners = {route: Runner(cfg, device=dev, kernels=route)
+               for route in ("cuda", "plain")}
+    if cfg.dtype != "float32":
+        # the fp32 gradient of the same weights, the floor of both bf16 routes
+        runners["fp32"] = Runner(load_config(opt, {"save_E": False, "save_L": False,
+                                                  **over, "dtype": "float32"}),
+                                 device=dev, kernels="plain")
+    plan = runners["cuda"]._plan(cfg.lambda_)
+    t = torch.full((y.shape[0],), int(plan.t[step]), dtype=torch.int32, device=dev)
+    diffusion = runners["cuda"].diffusion
+    x = diffusion.q_sample(2.0 * y - 1.0, t, torch.randn(y.shape, generator=gen,
+                                                         device=dev))
+    noise = torch.randn(y.shape, generator=gen, device=dev)
+
+    def residual(route, xv):
+        out = diffusion.p_sample(model_fn(runners[route].den), xv, t, noise)
+        return guidance.frobenius_residual(op, out["pred_xstart"], y)
+
+    def grad(route):
+        xv = x.detach().requires_grad_()
+        (g,) = torch.autograd.grad(residual(route, xv), xv)
+        return g.double()
+
+    def forward():
+        with torch.no_grad():
+            return residual("cuda", x)
+
+    out = {"t": int(plan.t[step]), "dtype": cfg.dtype, "batch": tuple(y.shape),
+           "cuda": grad("cuda"), "plain": grad("plain")}
+    if "fp32" in runners:
+        out["fp32"] = grad("fp32")
+    launches = (kgn.wants_grad, kat.wants_grad)
+    kgn.wants_grad = kat.wants_grad = lambda *a: False
+    try:
+        out["detached"] = grad("cuda")
+    finally:
+        kgn.wants_grad, kat.wants_grad = launches
+    out["forward_ms"] = timed_ms(forward, iters=5)
+    out["forward_backward_ms"] = timed_ms(lambda: grad("cuda"), iters=5)
+    out["plain_forward_backward_ms"] = timed_ms(lambda: grad("plain"), iters=5)
+    del runners
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_agreement(got, ref) -> tuple[float, float]:
+    """(relative L2 of got - ref, cosine of got and ref)."""
+    rel = float((got - ref).norm() / ref.norm())
+    cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+    return rel, cos
+
+
 def bound(case) -> tuple[float, str]:
     t_bytes = case["bytes"] / PEAK_BYTES_PER_S * 1e3
     t_ops = case["flops"] / PEAK_FLOPS[case["dtype"]] * 1e3
@@ -426,7 +646,8 @@ def run(argv: list[str]) -> int:
     from diffpir_tpu_torch.models import zoo
     from diffpir_tpu_torch.models.unet import UNet
     from diffpir_tpu_torch.runner import Runner
-    from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan
+    from diffpir_tpu_torch.schedule import (NoiseSchedule, build_plan,
+                                            make_progress_slots)
     from diffpir_tpu_torch.utils.image import list_images
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -554,13 +775,18 @@ def run(argv: list[str]) -> int:
                 "--set", "save_L=false", "--json"]
         cfg = load_config(opt, {"save_E": False, "save_L": False})
         n_batches = math.ceil(len(list_images(cfg.L_path)) / cfg.batch_size)
-        forwards = n_batches * (cfg.iter_num - 1)
+        forwards = n_batches * forwards_per_batch(cfg)
+        count_function_entries()
         LAUNCHES.clear()
+        FN_CALLS.clear()
         t0 = time.perf_counter()
         res = cli_main(argv)[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         main_launches = dict(LAUNCHES)
+        if FN_CALLS:
+            raise AssertionError(f"the DiffPIR path entered autograd.Functions: "
+                                 f"{dict(FN_CALLS)}")
         log(f"main path: PSNR {res['psnr']:.4f} dB (JAX CPU {JAX_DEMO64_PSNR:.4f}), "
             f"SSIM {res['ssim']:.4f}, {wall:.3f}s, launches {main_launches}, "
             f"{forwards} UNet forwards")
@@ -600,11 +826,15 @@ def run(argv: list[str]) -> int:
             cfg = load_config(opt, over)
             calls = per_forward_calls[cfg.model_name]
             forwards = (math.ceil(len(list_images(cfg.L_path)) / cfg.batch_size)
-                        * (cfg.iter_num - 1))
+                        * forwards_per_batch(cfg))
             runs = n_seeds * forwards
             want = {"groupnorm_silu": sum(c[0] == "gn" for c in calls) * runs,
                     "legacy_qkv_attention": sum(c[0] == "attn" for c in calls) * runs}
+            # only DPS_y0 differentiates through the UNet: each of its kernel
+            # calls goes through the kernel's autograd.Function
+            want_fn = want if cfg.generate_mode == "DPS_y0" else {}
             LAUNCHES.clear()
+            FN_CALLS.clear()
             t0 = time.perf_counter()
             res_seeds = [cli_main(argv + ["--set", f"seed={seed}"])[0]
                          for seed in range(cfg.seed, cfg.seed + n_seeds)]
@@ -616,6 +846,10 @@ def run(argv: list[str]) -> int:
             if task_launches[name] != want:
                 raise AssertionError(f"{name}: launches {task_launches[name]}, "
                                      f"expected {want}")
+            fn_calls = dict(FN_CALLS)
+            if fn_calls != want_fn:
+                raise AssertionError(f"{name}: autograd.Function entries "
+                                     f"{fn_calls}, expected {want_fn}")
             if {r["weights"] for r in res_seeds} != {"demo"}:
                 raise AssertionError(f"{name}: weights are {res['weights']!r}, not the "
                                      "trained prior under assets/demo")
@@ -660,10 +894,20 @@ def run(argv: list[str]) -> int:
             batches = make_batches(prepare_images(cfg), cfg.batch_size)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for bi, b in enumerate(batches):
-                runner.restore_batch(b, seed=cfg.seed + bi)
+            outs = [runner.restore_batch(b, seed=cfg.seed + bi)
+                    for bi, b in enumerate(batches)]
             torch.cuda.synchronize()
             ms_nfe = (time.perf_counter() - t0) * 1e3 / forwards
+            frames_note = ""
+            if cfg.log_process:
+                n_slots = int(make_progress_slots(runner._plan(cfg.lambda_).n_steps).max()) + 1
+                for (img, frames), b in zip(outs, batches):
+                    if frames.shape != (n_slots,) + b.img_H.shape:
+                        raise AssertionError(f"{name}: frames {frames.shape}, expected "
+                                             f"{(n_slots,) + b.img_H.shape}")
+                    if not np.array_equal(frames[-1], img):
+                        raise AssertionError(f"{name}: the last frame is not the output")
+                frames_note = f"; {n_slots} frames per image, the last one the output"
             prox_nfe = sum(a.elapsed_time(b) for a, b in prox_events) / forwards
             del runner
             torch.cuda.empty_cache()
@@ -679,7 +923,47 @@ def run(argv: list[str]) -> int:
                 f"{res['ssim']:.4f}, CLI {wall:.3f}s, {forwards} forwards, launches "
                 f"{task_launches[name]}; timed run {ms_nfe:.4f} ms per NFE: prox "
                 f"{prox_nfe:.4f} ms ({len(prox_events)} calls), UNet and renoise "
-                f"{ms_nfe - prox_nfe:.4f} ms")
+                f"{ms_nfe - prox_nfe:.4f} ms; autograd.Function entries "
+                f"{fn_calls}{frames_note}")
+
+    with phase("grad"):
+        grad_results = {}
+        for name, opt, over in (
+                ("demo64 fp32", "configs/demo64_deblur.yaml", {}),
+                ("demo256 bf16", "configs/demo256_deblur.yaml", {"iter_num": 20})):
+            # the plan's row 5 (t ~ 500): x0 = c1 x - c2 eps with c1, c2 ~ 1-3,
+            # away from t = 999 where c1 = 156 and the clamp's branch decides
+            g = dps_grad_case(opt, over, 5, gen, dev)
+            rel, cos = grad_agreement(g["cuda"], g["plain"])
+            rel_d, cos_d = grad_agreement(g["detached"], g["plain"])
+            tol, min_cos = GRAD_REL_TOL[g["dtype"]], GRAD_MIN_COSINE[g["dtype"]]
+            ok = rel <= tol and cos >= min_cos
+            control_fails = not (rel_d <= tol and cos_d >= min_cos)
+            floor = ""
+            if "fp32" in g:
+                rel_k32, _ = grad_agreement(g["cuda"], g["fp32"])
+                rel_p32, _ = grad_agreement(g["plain"], g["fp32"])
+                floor = (f"; against the fp32 gradient: kernels {rel_k32:.3e}, plain "
+                         f"{rel_p32:.3e}")
+            grad_results[name] = dict(t=g["t"], rel_l2=rel, cosine=cos,
+                                      detached_rel_l2=rel_d, detached_cosine=cos_d,
+                                      forward_ms=g["forward_ms"],
+                                      forward_backward_ms=g["forward_backward_ms"],
+                                      plain_forward_backward_ms=g["plain_forward_backward_ms"])
+            log(f"DPS_y0 gradient {name} {g['batch']} t={g['t']}: kernels vs plain "
+                f"relative L2 {rel:.3e} cosine {cos:.6f} (bounds {tol:g}, {min_cos}); "
+                f"detached control relative L2 {rel_d:.3e} cosine {cos_d:.6f}{floor}; event "
+                f"ms forward {g['forward_ms']:.4f}, forward and backward "
+                f"{g['forward_backward_ms']:.4f} (plain "
+                f"{g['plain_forward_backward_ms']:.4f})"
+                + ("" if ok and control_fails else "  FAIL"))
+            if not ok:
+                raise AssertionError(f"{name}: the gradient through the kernels differs "
+                                     f"from the plain one (rel {rel}, cosine {cos})")
+            if not control_fails:
+                raise AssertionError(f"{name}: the detached control passes the bounds, "
+                                     "so the check could not see a lost gradient")
+        log("grad: " + json.dumps(grad_results))
 
     with phase("flagship"):
         fcfg = load_config("configs/demo256_inpaint.yaml", {
@@ -726,6 +1010,7 @@ def run(argv: list[str]) -> int:
             trajectory(route)  # warm-up: allocations, cuDNN algorithm choice
         for route in ("cuda", "plain", "plain", "cuda"):
             LAUNCHES.clear()
+            FN_CALLS.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out[route] = trajectory(route)
@@ -737,6 +1022,9 @@ def run(argv: list[str]) -> int:
                     if route == "cuda" else {})
             if counts != want:
                 raise AssertionError(f"{route} run launches {counts}, expected {want}")
+            if FN_CALLS:
+                raise AssertionError(f"the DiffPIR path entered autograd.Functions: "
+                                     f"{dict(FN_CALLS)}")
         for route, img in out.items():
             if not bool(torch.isfinite(img).all()):
                 raise AssertionError(f"non-finite output on the {route} route")

@@ -29,6 +29,14 @@ def check_aligned(name: str, t: torch.Tensor, alignment: int = 16) -> None:
                          f"(storage offset {t.storage_offset()} elements)")
 
 
+def wants_grad(*tensors) -> bool:
+    """Whether a wrapper must run its kernel inside its autograd.Function:
+    grad mode is on and an input (None allowed) requires a gradient.  The
+    DiffPIR path runs under ``torch.no_grad`` and never enters one."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def current_stream_handle(device: torch.device) -> int:
     if torch.cuda.current_device() != device.index:
         raise ValueError(f"tensor on {device} but the current CUDA device is "

@@ -8,7 +8,10 @@ in ``csrc/attention.cu`` (bf16 on tensor cores, fp32 on CUDA cores).  qkv is
 ch^-1/4; logits and softmax are fp32; the output is (B, T, C).
 
 ``legacy_qkv_attention`` runs the plain version for a CPU tensor and the CUDA
-kernel for a CUDA tensor; it never falls back from one to the other.
+kernel for a CUDA tensor; it never falls back from one to the other.  Where a
+gradient is asked for (grad mode on and qkv requires one), the CUDA launch
+runs inside ``LegacyQKVAttentionFunction``, whose backward is in PyTorch
+operations (the TPU kernel has no backward kernel to port).
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ from diffpir_tpu_torch.kernels import LAUNCHES
 from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                check_cuda_tensor,
                                                current_stream_handle,
-                                               raise_on_error)
+                                               raise_on_error, wants_grad)
 
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
-           "attention_rows_per_block", "check_inputs"]
+           "LegacyQKVAttentionFunction", "attention_rows_per_block", "check_inputs"]
 
 KERNEL_HEAD_CHANNELS = (16, 32, 64)
 # query tiles the kernel takes, largest first: bf16 warps own 16 rows (tiles
@@ -85,12 +88,8 @@ def check_inputs(qkv: torch.Tensor, num_heads: int) -> int:
     return ch
 
 
-def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """qkv: (B, T, 3*C) with layout [head][q|k|v][head_dim] -> (B, T, C)."""
-    if qkv.device.type == "cpu":
-        return legacy_qkv_attention_plain(qkv, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"legacy_qkv_attention: unsupported device {qkv.device}")
+def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """One launch of the CUDA kernel; counted in LAUNCHES."""
     ch = check_inputs(qkv, num_heads)
     b, t, _ = qkv.shape
 
@@ -107,3 +106,39 @@ def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     raise_on_error("legacy_qkv_attention", rc)
     LAUNCHES["legacy_qkv_attention"] += 1
     return out
+
+
+class LegacyQKVAttentionFunction(torch.autograd.Function):
+    """The kernel's forward with a gradient for qkv.
+
+    The backward recomputes the plain version under ``torch.enable_grad``
+    and differentiates it with ``torch.autograd.grad``: the gradient is then
+    by construction the plain version's, at the cost of one plain forward
+    per backward on the only path that asks for one (DPS_y0).
+    """
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _launch(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            q = qkv.detach().requires_grad_()
+            (grad,) = torch.autograd.grad(
+                legacy_qkv_attention_plain(q, ctx.num_heads), q, grad_out)
+        return grad, None
+
+
+def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """qkv: (B, T, 3*C) with layout [head][q|k|v][head_dim] -> (B, T, C)."""
+    if qkv.device.type == "cpu":
+        return legacy_qkv_attention_plain(qkv, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"legacy_qkv_attention: unsupported device {qkv.device}")
+    if wants_grad(qkv):
+        return LegacyQKVAttentionFunction.apply(qkv, num_heads)
+    return _launch(qkv, num_heads)

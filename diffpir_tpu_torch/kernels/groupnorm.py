@@ -12,7 +12,10 @@ centred sums merged with Chan's formula, one read); bf16 inputs the one-pass
 E[x^2]-mean^2, clamped at 0.  The kernel makes two launches per call.
 
 ``groupnorm_silu`` runs the plain version for a CPU tensor and the CUDA kernel
-for a CUDA tensor; it never falls back from one to the other.
+for a CUDA tensor; it never falls back from one to the other.  Where a
+gradient is asked for (grad mode on and an input that requires one), the
+CUDA launch runs inside ``GroupNormSiLUFunction``, whose backward is in
+PyTorch operations (the TPU kernel has no backward kernel to port).
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from diffpir_tpu_torch.kernels import LAUNCHES
 from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                check_cuda_tensor,
                                                current_stream_handle,
-                                               raise_on_error)
+                                               raise_on_error, wants_grad)
 
-__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "partition_pixels",
-           "thread_layout", "check_inputs"]
+__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "GroupNormSiLUFunction",
+           "partition_pixels", "thread_layout", "check_inputs"]
 
 MAX_GROUPS = 64           # csrc/groupnorm.cu kMaxGroups
 MAX_THREADS = 1024        # threads per block
@@ -142,21 +145,8 @@ def _counters(dev: torch.device, stream: int, batch: int) -> torch.Tensor:
     return buf
 
 
-def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   film_scale: Optional[torch.Tensor] = None,
-                   film_shift: Optional[torch.Tensor] = None, *,
-                   num_groups: int = 32, eps: float = 1e-5,
-                   do_silu: bool = True) -> torch.Tensor:
-    """x: (B, H, W, C) -> GroupNorm(num_groups, fp32 stats) [*(1+fs)+fb] (+SiLU).
-
-    scale, bias: (C,) fp32; film_scale, film_shift: optional (B, C) fp32.
-    """
-    if x.device.type == "cpu":
-        return groupnorm_silu_plain(x, scale, bias, film_scale, film_shift,
-                                    num_groups=num_groups, eps=eps,
-                                    do_silu=do_silu)
-    if x.device.type != "cuda":
-        raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
+def _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
+    """One call of the CUDA kernel (two launches); counted in LAUNCHES."""
     _, _, rows = check_inputs(x, scale, bias, film_scale, film_shift,
                               num_groups=num_groups)
 
@@ -181,3 +171,56 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     raise_on_error("groupnorm_silu", rc)
     LAUNCHES["groupnorm_silu"] += 1
     return out
+
+
+class GroupNormSiLUFunction(torch.autograd.Function):
+    """The kernel's forward with a gradient.
+
+    The backward recomputes the plain version under ``torch.enable_grad``
+    and differentiates it with ``torch.autograd.grad``.  Recomputing, not a
+    closed form: the gradient is then by construction the plain version's,
+    which the kernel matches in the forward, and it costs one plain forward
+    per backward on the only path that asks for one (DPS_y0).  It returns
+    gradients for x, scale, bias and the FiLM pair where
+    ``ctx.needs_input_grad`` asks.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
+        ctx.save_for_backward(x, scale, bias, film_scale, film_shift)
+        ctx.args = (num_groups, eps, do_silu)
+        return _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        num_groups, eps, do_silu = ctx.args
+        needs = ctx.needs_input_grad[:5]
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        with torch.enable_grad():
+            y = groupnorm_silu_plain(*inputs, num_groups=num_groups, eps=eps,
+                                     do_silu=do_silu)
+            grads = iter(torch.autograd.grad(y, wanted, grad_out))
+        return tuple(next(grads) if need else None for need in needs) + (None,) * 3
+
+
+def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   film_scale: Optional[torch.Tensor] = None,
+                   film_shift: Optional[torch.Tensor] = None, *,
+                   num_groups: int = 32, eps: float = 1e-5,
+                   do_silu: bool = True) -> torch.Tensor:
+    """x: (B, H, W, C) -> GroupNorm(num_groups, fp32 stats) [*(1+fs)+fb] (+SiLU).
+
+    scale, bias: (C,) fp32; film_scale, film_shift: optional (B, C) fp32.
+    """
+    if x.device.type == "cpu":
+        return groupnorm_silu_plain(x, scale, bias, film_scale, film_shift,
+                                    num_groups=num_groups, eps=eps,
+                                    do_silu=do_silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
+    if wants_grad(x, scale, bias, film_scale, film_shift):
+        return GroupNormSiLUFunction.apply(x, scale, bias, film_scale, film_shift,
+                                           num_groups, eps, do_silu)
+    return _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)

@@ -2,12 +2,18 @@
 
     python -m diffpir_tpu_torch.main --opt configs/demo64_deblur.yaml [--no-sweep] \
         [--set key=value ...] [--cpu] [--json]
+    python -m diffpir_tpu_torch.main --opt configs/demo64_deblur.yaml \
+        --tune 50,100,150:0.5 [--tune-index I] [--tune-images K]
 
-Runs the config's task (deblur, sr or inpaint) on the CUDA card unless
+Runs the config's task (deblur, sr or inpaint) in its trajectory mode
+(``generate_mode``, ``model_output_type``, ...) on the CUDA card unless
 ``--cpu`` is given, and refuses to start when there is no card and ``--cpu``
 was not asked for.  Without ``--no-sweep`` it evaluates every (lambda, zeta)
-of the reference's sweep (``runner.reference_sweep``).  ``main(argv)`` can be
-called in-process and returns the list of result dicts.
+of the reference's sweep (``runner.reference_sweep``).  ``--tune`` instead
+scores a grid of operating points on test images, all candidates of an image
+in one batch (``Runner.tune_operating_point``), and prints the table.
+``main(argv)`` can be called in-process and returns the list of result dicts
+(with ``--tune``, the per-candidate rows).
 """
 
 from __future__ import annotations
@@ -31,6 +37,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="config override (repeatable); VALUE is parsed as JSON "
                         "when it can be")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--tune", type=str, default=None, metavar="L1,L2,...",
+                   help="score this lambda grid on one test image, all "
+                        "candidates in one batch (per-sample operating "
+                        "points), and print the per-candidate table; entries "
+                        "are 'lambda' or 'lambda:zeta'")
+    p.add_argument("--tune-index", type=int, default=0, metavar="I",
+                   help="test-set image index --tune runs on (default 0)")
+    p.add_argument("--tune-images", type=int, default=1, metavar="K",
+                   help="average the --tune grid over K consecutive test "
+                        "images from --tune-index on (one batch each)")
     p.add_argument("--json", action="store_true", help="print results as JSON")
     return p.parse_args(argv)
 
@@ -57,6 +73,8 @@ def main(argv=None) -> list[dict]:
         shutil.copyfile(args.opt, os.path.join(cfg.E_path, "config.yaml"))
 
     runner = Runner(cfg, device=device)
+    if args.tune:
+        return tune(runner, args)
     results = [runner.evaluate()] if args.no_sweep else runner.evaluate_sweep()
     if len(results) > 1:
         best = max(results, key=lambda r: r["psnr"])
@@ -70,6 +88,32 @@ def main(argv=None) -> list[dict]:
         json.dump(results, sys.stdout, indent=2, default=float)
         print()
     return results
+
+
+def tune(runner, args: argparse.Namespace) -> list[dict]:
+    """``--tune``: the grid's table and best row, printed as
+    ``main_ddpir.py:85-108`` prints them."""
+    cfg = runner.cfg
+    pts = []
+    for tok in args.tune.split(","):
+        lam, _, zet = tok.partition(":")
+        pts.append((float(lam), float(zet) if zet else None))
+    res = runner.tune_operating_point(
+        pts, index=args.tune_index,
+        indices=(range(args.tune_index, args.tune_index + args.tune_images)
+                 if args.tune_images > 1 else None))
+    print(f"{'lambda':>8} {'zeta':>6} {'PSNR':>8}" + ("    SSIM" if cfg.calc_SSIM else ""))
+    for row in res["results"]:
+        print(f"{row['lambda_']:>8.3f} {row['zeta']:>6.2f} {row['psnr']:>8.3f}"
+              + (f"  {row['ssim']:.4f}" if "ssim" in row else ""))
+    best = res["best"]
+    print(f"best: lambda={best['lambda_']:g} zeta={best['zeta']:g} "
+          f"({best['psnr']:.3f} dB) — {len(pts)} candidates, "
+          f"{args.tune_images} batch(es)")
+    if args.json:
+        json.dump(res["results"], sys.stdout, indent=2, default=float)
+        print()
+    return res["results"]
 
 
 if __name__ == "__main__":

@@ -154,7 +154,9 @@ def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
                   init_seed: int = 0) -> ResolvedModel:
     """The model ``model_name`` with its weights, on ``device``: by default
     the current CUDA card (raises when there is none); the CPU only when
-    ``device="cpu"`` is asked for."""
+    ``device="cpu"`` is asked for.  Its parameters are frozen
+    (``requires_grad`` off), so a gradient taken through it (DPS_y0) tracks
+    activations only."""
     if device is None:
         device = resolve_device(cpu=False)
     cfg = model_config_for(model_name)
@@ -177,4 +179,4 @@ def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
                     model_zoo)
         init_random_(model, init_seed)
         provenance = "random"
-    return ResolvedModel(model.to(device).eval(), provenance)
+    return ResolvedModel(model.to(device).eval().requires_grad_(False), provenance)

@@ -1,5 +1,6 @@
-"""Degradation helpers on the host (numpy and scipy): inpainting masks,
-blur kernels and the classical SR degradation.
+"""Degradation helpers: inpainting masks, blur kernels and the classical SR
+degradation on the host (numpy and scipy), and the DPS forward blur on the
+device.
 
 Copies of ``diffpir_tpu/ops/degrade.py``:
 
@@ -11,11 +12,11 @@ Copies of ``diffpir_tpu/ops/degrade.py``:
                                   (``utils_deblur.py:658-666``)
   * ``shift_pixel``            == ``utils/utils_sisr.py:118-144``
   * ``classical_degradation``  == ``utils/utils_sisr.py:100-114``
+  * ``blur_reflect``           == ``ReflectionPad2d`` + grouped ``F.conv2d``
+                                  (``main_ddpir.py:304-310``)
 
 ``motion_psf`` is not ported: the JAX package rasterises it with Pillow,
-which the port does not use (ROADMAP.md queue A).  The on-device forward
-operators (``blur_circular``, ``blur_reflect``) belong to guidance and are
-not ported yet either.
+which the port does not use (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 __all__ = ["box_mask", "random_mask", "make_mask", "fspecial_gaussian",
-           "gaussian_psf", "shift_pixel", "classical_degradation"]
+           "gaussian_psf", "shift_pixel", "classical_degradation", "blur_reflect"]
 
 
 def box_mask(image_size=256, mask_len_range=(128, 129), margin=(16, 16),
@@ -137,3 +140,20 @@ def classical_degradation(x: np.ndarray, k: np.ndarray, sf: int = 3) -> np.ndarr
 
     y = ndimage.convolve(x, np.expand_dims(k, axis=2), mode="wrap")
     return y[::sf, ::sf, ...]
+
+
+def blur_reflect(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Reflection-padded depthwise correlation, the DPS forward blur.
+
+    x: (B, H, W, C); k: (B, kh, kw), one kernel per batch element, or one
+    (kh, kw) kernel for all.  ``F.conv2d`` is correlation, as the
+    reference's (no kernel flip).  Both sides are padded by kw//2, as in the
+    JAX package.  Differentiable in x.
+    """
+    b, h, w, c = x.shape
+    pad = k.shape[-1] // 2
+    k = k.to(x.dtype).expand((b,) + tuple(k.shape[-2:]))
+    xp = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    weight = k[:, None].repeat_interleave(c, dim=0)          # (B*C, 1, kh, kw)
+    y = F.conv2d(xp.reshape(1, b * c, *xp.shape[2:]), weight, groups=b * c)
+    return y.reshape(b, c, *y.shape[2:]).permute(0, 2, 3, 1)

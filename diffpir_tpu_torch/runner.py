@@ -1,14 +1,19 @@
 """Evaluation runner: dataset -> degrade -> restore -> metrics -> artifacts.
 
-Port of the DiffPIR-mode path of ``diffpir_tpu/runner.py`` for deblurring,
-super-resolution (blur, cubic and classical) and inpainting
+Port of ``diffpir_tpu/runner.py`` for deblurring, super-resolution (blur,
+cubic and classical) and inpainting in every trajectory mode
 (``reference_sweep``, ``Runner.__init__``, ``_plan``, the restore function
-at ``:226-313``, ``restore_batch``, ``evaluate`` and ``evaluate_sweep``;
-reference ``main_ddpir.py:172-595``).  Metrics: batched PSNR on [-1,1] with
-max_pixel=2, the reference's PSNR-Y composition and SSIM.  Restored and
-degraded images are written as PNGs under ``results/<result_name>/`` when
-``save_E``/``save_L`` are set.  The device mesh, AOT export, guidance and the
-other trajectory modes are not ported yet.
+at ``:226-313``, ``restore_batch``, ``evaluate``, ``evaluate_sweep`` and
+``tune_operating_point``; reference ``main_ddpir.py:172-595``): DiffPIR,
+repaint and vanilla with ``iter_num_U`` inner repeats and progress
+snapshots, ``pred_x_prev`` (ancestral or DDIM), DPS_y0 and DPS_yt, and the
+first-order prox of ``sub_1_analytic=false``.  ``lambda_`` and ``zeta`` may
+be per-sample.  Metrics: batched PSNR on [-1,1] with max_pixel=2, the
+reference's PSNR-Y composition, SSIM, and PSNR/SSIM over inpainting holes.
+Restored and degraded images, progress strips and the inpainting mask are
+written as PNGs under ``results/<result_name>/`` when saving.  Still queued
+(ROADMAP.md queue A): ``test_mode``, the DIY motion PSF, the device mesh,
+LPIPS/FID, ``save_LEH`` and AOT export.
 """
 
 from __future__ import annotations
@@ -24,12 +29,15 @@ import torch
 from diffpir_tpu_torch import resolve_device
 from diffpir_tpu_torch.config import TaskConfig
 from diffpir_tpu_torch.data import Batch, make_batches, prepare_images
+from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
+from diffpir_tpu_torch.guidance import dps_sample, make_degrade_op, make_grad_prox
 from diffpir_tpu_torch.models.zoo import resolve_model
 from diffpir_tpu_torch.ops.fft_prox import precompute
 from diffpir_tpu_torch.sampler import (diffpir_sample, generator_noise, init_x,
                                        make_cubic_sr_prox, make_denoiser,
-                                       make_fft_prox, make_inpaint_prox)
-from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan
+                                       make_fft_prox, make_inpaint_prox, model_fn,
+                                       xprev_sample)
+from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan, make_progress_slots
 from diffpir_tpu_torch.utils import image as im
 
 __all__ = ["Runner", "reference_sweep", "setup_logger"]
@@ -69,28 +77,19 @@ def reference_sweep(cfg: TaskConfig) -> list[tuple[float, float]]:
 
 def _check_supported(cfg: TaskConfig) -> None:
     unported = []
-    if cfg.task in ("deblur", "sr") and not cfg.sub_1_analytic:
-        unported.append("sub_1_analytic=False (guidance)")
     if cfg.task == "deblur" and cfg.use_DIY_kernel and cfg.blur_mode != "Gaussian":
         unported.append(f"use_DIY_kernel with blur_mode={cfg.blur_mode!r}")
-    if cfg.generate_mode != "DiffPIR":
-        unported.append(f"generate_mode={cfg.generate_mode!r}")
-    if cfg.model_output_type != "pred_xstart":
-        unported.append(f"model_output_type={cfg.model_output_type!r}")
-    if cfg.iter_num_U != 1:
-        unported.append(f"iter_num_U={cfg.iter_num_U}")
     if cfg.test_mode:
         unported.append(f"test_mode={cfg.test_mode}")
-    if cfg.log_process:
-        unported.append("log_process")
     if cfg.mesh_shape is not None:
         unported.append("mesh_shape")
-    for flag in ("calc_LPIPS", "calc_FID", "save_LEH", "save_progressive_mask"):
+    for flag in ("calc_LPIPS", "calc_FID", "save_LEH"):
         if getattr(cfg, flag):
             unported.append(flag)
     if unported:
         raise NotImplementedError(
-            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A): "
+            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A: test_mode, "
+            "the DIY motion PSF, the device mesh, LPIPS/FID and save_LEH): "
             + ", ".join(unported))
 
 
@@ -135,20 +134,33 @@ class Runner:
             cfg.model_name, cfg.model_zoo, dtype=self.dtype, device=self.device,
             kernels=kernels)
         self.den = make_denoiser(self.model, self.schedule, compute_dtype=self.dtype)
+        self.diffusion = Diffusion(self.schedule, ModelMeanType.EPSILON,
+                                   ModelVarType.LEARNED_RANGE)
 
     def _plan(self, lambda_: float):
+        # the cumulative sigma-bar weights rho only for pred_xstart with
+        # DiffPIR; every other mode uses sigma_k = sqrt(beta/alpha)
+        # (main_ddpir.py:279-284)
+        cfg = self.cfg
+        xstart = cfg.model_output_type == "pred_xstart" and cfg.generate_mode == "DiffPIR"
         return build_plan(
-            self.schedule, iter_num=self.cfg.iter_num, skip_type=self.cfg.skip_type,
-            lambda_=lambda_, eta=self.cfg.eta, sigma_y=self.cfg.sigma,
+            self.schedule, iter_num=cfg.iter_num, skip_type=cfg.skip_type,
+            lambda_=lambda_, eta=cfg.eta, sigma_y=cfg.sigma,
             t_start=self.t_start, noise_model_t=self.noise_model_t,
-            rho_mode="xstart")
+            rho_mode="xstart" if xstart else "xprev")
 
     def make_prox(self, y: torch.Tensor, kernel: Optional[torch.Tensor],
                   mask: torch.Tensor):
         """The task's data prox ``prox(x0, tau)`` for the observations ``y``:
-        the masked average (inpaint), the FFT solve (deblur, sr blur and
-        classical) or cubic back-projection (sr cubic)."""
+        the first-order gradient step (deblur and sr with
+        ``sub_1_analytic=false``), the masked average (inpaint), the FFT
+        solve (deblur, sr blur and classical) or cubic back-projection (sr
+        cubic)."""
         cfg = self.cfg
+        if cfg.task in ("deblur", "sr") and not cfg.sub_1_analytic:
+            hr_hw = (y.shape[1] * cfg.sf, y.shape[2] * cfg.sf)
+            op = make_degrade_op(cfg.task, kernel=kernel, hr_hw=hr_hw, sf=cfg.sf)
+            return make_grad_prox(op, y if cfg.task == "deblur" else 2.0 * y - 1.0)
         if cfg.task == "inpaint":
             return make_inpaint_prox(y, mask, cfg.guidance_scale)
         if cfg.task == "deblur" or cfg.sr_mode in ("blur", "classical"):
@@ -157,26 +169,35 @@ class Runner:
         return make_cubic_sr_prox(y, cfg.sf, gamma=cfg.gamma, in_iter=cfg.inIter,
                                   hr_hw=hr_hw)
 
-    def restore(self, y: torch.Tensor, mask: torch.Tensor, lambda_: float,
-                zeta: float, seed: int, noise=None,
-                kernel: Optional[torch.Tensor] = None,
-                init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def restore(self, y: torch.Tensor, mask: torch.Tensor, lambda_, zeta,
+                seed: int, noise=None, kernel: Optional[torch.Tensor] = None,
+                init: Optional[torch.Tensor] = None):
         """Restore (B,h,w,C) observations ``y`` in [0,1] on the runner's
-        device; returns (B,H,W,C) fp32 in [0,1] (H = h*sf).  ``kernel`` is the
-        (B,kh,kw) blur of deblur and sr blur/classical; ``init``, where given,
-        replaces the task's x init in [0,1] before it is diffused to t_start
-        (the shifted upscale of sr classical, ``main_ddpir_sisr.py:243-248``).
-        Noise comes from a ``torch.Generator`` seeded with ``seed`` unless
-        ``noise`` is given (``sampler.diffpir_sample``; its initial draw is
-        ``which="init"``)."""
+        device; returns (B,H,W,C) fp32 in [0,1] (H = h*sf), or ``(x, frames)``
+        with ``log_process``.  ``lambda_`` and ``zeta`` are floats or
+        per-sample (B,) values; with either per-sample, the plan is built at
+        lambda 1 and rho scaled per sample, as in the JAX package.
+        ``kernel`` is the (B,kh,kw) blur of deblur and sr blur/classical;
+        ``init``, where given, replaces the task's x init in [0,1] before it
+        is diffused to t_start (the shifted upscale of sr classical,
+        ``main_ddpir_sisr.py:243-248``).  Noise comes from a
+        ``torch.Generator`` seeded with ``seed`` unless ``noise`` is given
+        (``sampler``; the initial draw is ``which="init"``)."""
         cfg = self.cfg
-        plan = self._plan(lambda_)
+        b, h, w, c = y.shape
+        lam_scale = None
+        if np.ndim(lambda_) == 1 or np.ndim(zeta) == 1:
+            lambda_ = np.broadcast_to(np.asarray(lambda_, np.float32), (b,)).copy()
+            zeta = np.broadcast_to(np.asarray(zeta, np.float32), (b,)).copy()
+            lam_scale = lambda_
+            plan = self._plan(1.0)
+        else:
+            plan = self._plan(lambda_)
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             noise = generator_noise(gen, self.device)
         sa0 = float(self.schedule.sqrt_alphas_cumprod[self.t_start])
         s1m0 = float(np.sqrt(1 - self.schedule.alphas_cumprod[self.t_start]))
-        b, h, w, c = y.shape
         up = cfg.sf if cfg.task == "sr" else 1
         n0 = noise(-1, 0, "init", (b, h * up, w * up, c))
         if init is not None:
@@ -185,13 +206,33 @@ class Runner:
             x = init_x(cfg.task, y, mask, cfg.sf, n0, sqrt_acp_start=sa0,
                        sqrt_1m_acp_start=s1m0, ty=self.ty_scale)
         inpaint = cfg.task == "inpaint"
-        return diffpir_sample(self.den, self.make_prox(y, kernel, mask), plan, x,
-                              noise=noise, zeta=zeta, y=y, mask=mask,
-                              recover_known=inpaint and cfg.recover_known)
+        if cfg.model_output_type == "pred_x_prev":
+            # inpaint: the masked average on the sampled x; deblur and sr: no
+            # data term in this mode (main_ddpir.py:414)
+            return xprev_sample(
+                self.diffusion, model_fn(self.den), plan, x, noise=noise,
+                ddim=cfg.ddim_sample, y=y if inpaint else None,
+                mask=mask if inpaint else None, recover_known=cfg.recover_known,
+                lam_scale=lam_scale)
+        if cfg.generate_mode in ("DPS_y0", "DPS_yt"):
+            op = make_degrade_op(cfg.task, kernel=kernel, hr_hw=(h * up, w * up),
+                                 sf=cfg.sf)
+            return dps_sample(self.diffusion, model_fn(self.den), op, plan, x,
+                              noise=noise, mode=cfg.generate_mode, task=cfg.task,
+                              y=y, lambda_=lambda_)
+        slots = make_progress_slots(plan.n_steps) if cfg.log_process else None
+        prox = self.make_prox(y, kernel, mask)
+        with torch.no_grad():
+            return diffpir_sample(
+                self.den, prox, plan, x, noise=noise, zeta=zeta,
+                iter_num_U=cfg.iter_num_U, generate_mode=cfg.generate_mode, y=y,
+                mask=mask, recover_known=inpaint and cfg.recover_known,
+                progress_slots=slots, lam_scale=lam_scale)
 
-    def restore_batch(self, batch: Batch, lambda_: Optional[float] = None,
-                      zeta: Optional[float] = None, seed: int = 0) -> np.ndarray:
-        """Restore one batch; returns float [0,1] (B,H,W,C) numpy."""
+    def restore_batch(self, batch: Batch, lambda_=None, zeta=None, seed: int = 0):
+        """Restore one batch; returns float [0,1] (B,H,W,C) numpy, or
+        ``(x, frames)`` with ``log_process``.  ``lambda_``/``zeta`` may be
+        per-sample sequences (see ``restore``)."""
         lambda_ = self.cfg.lambda_ if lambda_ is None else lambda_
         zeta = self.cfg.zeta if zeta is None else zeta
 
@@ -200,15 +241,21 @@ class Runner:
 
         out = self.restore(dev(batch.img_L), dev(batch.mask), lambda_, zeta, seed,
                            kernel=dev(batch.kernel), init=dev(batch.init))
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy() for o in out)
         return out.cpu().numpy()
 
     def evaluate(self, lambda_: Optional[float] = None,
                  zeta: Optional[float] = None,
                  paths: Optional[list[str]] = None,
-                 save: Optional[bool] = None) -> dict:
+                 save: Optional[bool] = None,
+                 hole_metrics: bool = False) -> dict:
         """Test-set evaluation with the JAX package's metrics and logging.
 
-        Batch ``bi`` draws its noise from seed ``cfg.seed + bi``."""
+        Batch ``bi`` draws its noise from seed ``cfg.seed + bi``.
+        ``hole_metrics=True`` (inpainting) adds ``psnr_hole``/``ssim_hole``:
+        PSNR and SSIM over the masked-out (mask == 0) pixels only, which
+        ``recover_known`` does not dilute."""
         cfg = self.cfg
         lambda_ = cfg.lambda_ if lambda_ is None else lambda_
         zeta = cfg.zeta if zeta is None else zeta
@@ -228,10 +275,16 @@ class Runner:
         batches = make_batches(items, cfg.batch_size)
 
         psnrs, psnrs_y, ssims, n_imgs = [], [], [], 0
+        psnrs_hole, ssims_hole = [], []
+        if save and cfg.task == "inpaint" and cfg.save_progressive_mask:
+            im.imsave_batch(batches[0].mask, batches[0].names, cfg.E_path, "mask_")
         t_wall0 = time.perf_counter()
         for bi, batch in enumerate(batches):
             t0 = time.perf_counter()
             x0 = self.restore_batch(batch, lambda_, zeta, seed=cfg.seed + bi)
+            frames = None
+            if isinstance(x0, tuple):  # (restored, progress frames)
+                x0, frames = x0
             dt = time.perf_counter() - t0
             nb = len(batch.names)
             gt = batch.img_H.astype(np.float32) / 255.0
@@ -254,6 +307,16 @@ class Runner:
                     psnr_y = im.psnr_batch(y3(x0 * 2 - 1), y3(gt * 2 - 1))
                 psnrs_y.append(psnr_y * nb)
             msg = f"batch{bi + 1:->4d}--> PSNR: {psnr:.4f}dB"
+            if hole_metrics:
+                hole = 1.0 - batch.mask[:, :, :, 0]  # (nb, H, W), 1 = hole
+                ph = float(np.mean([
+                    im.psnr_region(x0[j] * 2 - 1, gt[j] * 2 - 1, hole[j][:, :, None])
+                    for j in range(nb)]))
+                sh = float(np.mean([im.ssim(E_uint[j], batch.img_H[j], region=hole[j])
+                                    for j in range(nb)]))
+                psnrs_hole.append(ph * nb)
+                ssims_hole.append(sh * nb)
+                msg += f"; hole PSNR: {ph:.4f}dB SSIM: {sh:.4f}"
             if cfg.calc_SSIM:
                 sv = float(np.mean([im.ssim(E_uint[j], batch.img_H[j])
                                     for j in range(nb)]))
@@ -261,6 +324,11 @@ class Runner:
                 msg += f"; SSIM: {sv:.4f}"
             n_imgs += nb
             lg.info(msg + f" ({nb} imgs, {dt:.2f}s)")
+            if save and frames is not None:
+                # progress strip: the snapshots side by side
+                # (reference main_ddpir_sisr.py:426-432)
+                strips = np.concatenate(list(frames), axis=2)
+                im.imsave_batch(strips, batch.names, cfg.E_path, "progress_")
             if save and cfg.save_E:
                 im.imsave_batch(
                     x0, batch.names, cfg.E_path,
@@ -274,6 +342,8 @@ class Runner:
             "psnr": sum(psnrs) / n_imgs,
             "psnr_y": sum(psnrs_y) / n_imgs if psnrs_y else None,
             "ssim": sum(ssims) / n_imgs if ssims else None,
+            "psnr_hole": sum(psnrs_hole) / n_imgs if psnrs_hole else None,
+            "ssim_hole": sum(ssims_hole) / n_imgs if ssims_hole else None,
             "n_images": n_imgs,
             "images_per_sec": n_imgs / wall if wall > 0 else 0.0,
             "lambda_": lambda_, "zeta": zeta,
@@ -284,6 +354,9 @@ class Runner:
                f"{results['psnr']:.4f} dB")
         if results["ssim"] is not None:
             msg += f" | SSIM: {results['ssim']:.4f}"
+        if results["psnr_hole"] is not None:
+            msg += (f" | hole PSNR: {results['psnr_hole']:.4f} dB "
+                    f"SSIM: {results['ssim_hole']:.4f}")
         lg.info(msg + f" | {results['images_per_sec']:.3f} img/s")
         return results
 
@@ -291,3 +364,68 @@ class Runner:
         """``evaluate`` at each point of ``reference_sweep``."""
         return [self.evaluate(lambda_=l, zeta=z, **kw)
                 for l, z in reference_sweep(self.cfg)]
+
+    def tune_operating_point(self, points, *, batch: Optional[Batch] = None,
+                             paths: Optional[list[str]] = None, index: int = 0,
+                             indices=None, seed: Optional[int] = None) -> dict:
+        """Score (lambda, zeta) candidates on one or more observations, one
+        trajectory each (``diffpir_tpu/runner.py:626-720``).
+
+        One observation is replicated ``len(points)`` times and restored with
+        per-sample (lambda, zeta), so the whole grid is one batch.  With
+        ``indices`` the same is done once per test image and candidates are
+        ranked by their mean PSNR.  ``zeta=None`` in a point means the config's;
+        ``batch`` (row 0 is the observation) replaces the test set; launch k
+        draws from seed ``seed + k`` (default ``cfg.seed``), shared by all
+        candidates.  Returns ``{"results": [...], "best": {...}, "output":
+        (H,W,C)}``: per-candidate mean PSNR (and SSIM with ``calc_SSIM``) in
+        input order, the best row, and its restore of the first image.
+        """
+        cfg = self.cfg
+        pts = [(float(l), cfg.zeta if z is None else float(z)) for l, z in points]
+        if not pts:
+            raise ValueError("points must be non-empty")
+        if batch is not None:
+            if indices is not None:
+                raise ValueError("pass either batch or indices, not both")
+            batches = [batch]
+        else:
+            np.random.seed(cfg.seed)
+            items = prepare_images(cfg, paths)
+            idxs = list(indices) if indices is not None else [index]
+            if not idxs:
+                raise ValueError("indices must be non-empty (need at least one "
+                                 "image to tune on)")
+            for i in idxs:
+                if i >= len(items):
+                    raise IndexError(f"index {i} >= {len(items)} test images")
+            batches = [make_batches([items[i]], 1)[0] for i in idxs]
+        n = len(pts)
+        lams = np.array([l for l, _ in pts], np.float32)
+        zets = np.array([z for _, z in pts], np.float32)
+        base_seed = cfg.seed if seed is None else seed
+        psnr_acc = np.zeros(n, np.float64)
+        ssim_acc = np.zeros(n, np.float64)
+        first_out = None
+        for k, b in enumerate(batches):
+            rep = lambda a: None if a is None else np.repeat(a[:1], n, axis=0)
+            grid = Batch(img_H=rep(b.img_H), img_L=rep(b.img_L), kernel=rep(b.kernel),
+                         mask=rep(b.mask), names=[b.names[0]] * n, init=rep(b.init))
+            out = self.restore_batch(grid, lambda_=lams, zeta=zets, seed=base_seed + k)
+            if isinstance(out, tuple):  # drop progress frames
+                out = out[0]
+            if first_out is None:
+                first_out = out
+            gt = b.img_H[0].astype(np.float32) / 255.0
+            for i in range(n):
+                psnr_acc[i] += float(im.psnr_batch(out[i:i + 1] * 2 - 1, gt[None] * 2 - 1))
+                if cfg.calc_SSIM:
+                    ssim_acc[i] += float(im.ssim(im.single2uint(out[i]), b.img_H[0]))
+        results = []
+        for i, (lam, zet) in enumerate(pts):
+            row = {"lambda_": lam, "zeta": zet, "psnr": float(psnr_acc[i] / len(batches))}
+            if cfg.calc_SSIM:
+                row["ssim"] = float(ssim_acc[i] / len(batches))
+            results.append(row)
+        best_i = int(np.argmax([r["psnr"] for r in results]))
+        return {"results": results, "best": results[best_i], "output": first_out[best_i]}

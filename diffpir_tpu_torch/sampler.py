@@ -1,24 +1,27 @@
-"""The DiffPIR sampling trajectory, as a Python loop of steps.
+"""The sampling trajectories, as Python loops of steps.
 
-Port of the DiffPIR-mode path of ``diffpir_tpu/sampler.py``
-(``make_denoiser``/``denoise_x0`` at ``:53-89``, the data proxes
-``make_inpaint_prox``, ``make_fft_prox`` and ``make_cubic_sr_prox`` at
-``:117-167``, ``init_x`` at ``:174-213`` and ``diffpir_sample`` at
-``:287-421``; reference loop ``main_ddpir.py:341-467``).
-Per step: one UNet denoise estimating x0 from x_t, the task's data prox,
-then the DDIM-like renoise to x_{t-1} controlled by (eta, zeta).  The JAX
-package runs steps 0..n-2 in one ``lax.scan``; here they are a Python loop
-that reads its per-step scalars from the host-side plan, so it never waits
-for the device.  The reference's final denoise is skipped as there: its
-result is never used.
+Port of ``diffpir_tpu/sampler.py``: ``make_denoiser``/``denoise_x0`` and
+``denoise_output`` (``:53-110``), the data proxes ``make_inpaint_prox``,
+``make_fft_prox`` and ``make_cubic_sr_prox`` (``:117-167``), ``init_x``
+(``:174-213``), ``xprev_sample`` (``:220-270``) and ``diffpir_sample``
+(``:287-421``); reference loop ``main_ddpir.py:341-467``.
+DiffPIR step: one UNet denoise estimating x0 from x_t, the task's data prox,
+then the DDIM-like renoise to x_{t-1} controlled by (eta, zeta); repaint
+re-injects the forward-diffused known pixels before the denoise and runs no
+prox, vanilla runs no prox, and ``iter_num_U > 1`` sets x_{t-1} back to x_t
+between inner repeats.  The JAX package runs the steps in one ``lax.scan``;
+here they are a Python loop that reads its per-step scalars from the
+host-side plan, so it never waits for the device.  The reference's final
+denoise is skipped as there: its result is never used.
 
 Noise.  By default every draw comes from a ``torch.Generator`` on the
 sampler's device.  A caller may instead pass ``noise(i, u, which, shape)``,
-which returns the draw for step ``i``, inner repeat ``u`` and ``which`` in
-{"n1", "n2"} (the eta and zeta noises); ``init_x`` takes its initial noise as
-an argument.  Tests use these to feed the JAX package's draws to both
-packages.  Other trajectory modes (repaint, vanilla, iter_num_U > 1, progress
-snapshots) are not ported yet.
+which returns the draw for step ``i``, inner repeat ``u`` and ``which``:
+"n1" and "n2" (the eta and zeta noises of the renoise), "n3" (the set-back
+of ``iter_num_U > 1``), "rp" (repaint's noised known pixels) and "xprev"
+(the ancestral or DDIM step of ``xprev_sample``); ``guidance.dps_sample``
+adds "samp" and "yt".  ``init_x`` takes its initial noise as an argument.
+Tests use these to feed the JAX package's draws to both packages.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from diffpir_tpu_torch.ops.fft_prox import ProxOperator, prox_solve
 from diffpir_tpu_torch.ops.resize import Resizer2D
 from diffpir_tpu_torch.schedule import NoiseSchedule, TrajectoryPlan
 
-__all__ = ["Denoiser", "make_denoiser", "denoise_x0", "make_inpaint_prox",
-           "make_fft_prox", "make_cubic_sr_prox", "init_x", "generator_noise",
-           "diffpir_sample"]
+__all__ = ["Denoiser", "make_denoiser", "model_fn", "denoise_x0", "denoise_output",
+           "make_inpaint_prox", "make_fft_prox", "make_cubic_sr_prox", "init_x",
+           "generator_noise", "per_sample", "diffpir_sample", "xprev_sample"]
 
 NoiseFn = Callable[[int, int, str, tuple], torch.Tensor]
 
@@ -60,6 +63,12 @@ def make_denoiser(model: Callable, schedule: NoiseSchedule, *,
         compute_dtype=compute_dtype)
 
 
+def model_fn(den: Denoiser) -> Callable:
+    """``model_fn(x, t_vec)`` for ``diffusion.Diffusion``: the UNet on x cast
+    to the compute type (differentiable; the caller chooses the grad mode)."""
+    return lambda x, t: den.model(x.to(den.compute_dtype), t)
+
+
 def denoise_x0(den: Denoiser, x: torch.Tensor, t: int) -> torch.Tensor:
     """x0_hat = clip(sqrt(1/acp_t) x - sqrt(1/acp_t - 1) eps_theta(x, t), -1, 1).
 
@@ -72,6 +81,24 @@ def denoise_x0(den: Denoiser, x: torch.Tensor, t: int) -> torch.Tensor:
     eps = out[..., : x.shape[-1]].float()
     x0 = float(den.sqrt_recip_acp[t]) * x - float(den.sqrt_recipm1_acp[t]) * eps
     return x0.clamp(-1.0, 1.0)
+
+
+def denoise_output(den: Denoiser, x: torch.Tensor, t: int,
+                   output_type: str = "pred_xstart") -> torch.Tensor:
+    """Denoiser output in the reference ``model_fn`` vocabulary
+    (``utils/utils_model.py:242-258``): pred_xstart | epsilon | score,
+    epsilon and score re-derived from the clamped x0 as the reference does."""
+    x0 = denoise_x0(den, x, t)
+    if output_type == "pred_xstart":
+        return x0
+    sqrt_acp = np.float32(1.0) / den.sqrt_recip_acp[t]
+    sqrt_1m = den.sqrt_recipm1_acp[t] / den.sqrt_recip_acp[t]
+    eps = (x - float(sqrt_acp) * x0) / float(sqrt_1m)
+    if output_type == "epsilon":
+        return eps
+    if output_type == "score":
+        return -eps / float(sqrt_1m)
+    raise ValueError(f"unknown output_type {output_type!r}")
 
 
 def make_inpaint_prox(y: torch.Tensor, mask: torch.Tensor,
@@ -164,38 +191,121 @@ def generator_noise(gen: torch.Generator, device: torch.device) -> NoiseFn:
     return noise
 
 
+def per_sample(v, like: torch.Tensor):
+    """A (B,) operating point as a (B, 1, 1, 1) fp32 tensor on ``like``'s
+    device; a scalar (or None) stays as it is."""
+    if v is None or np.ndim(v) == 0:
+        return v
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device).reshape(-1, 1, 1, 1)
+
+
 def diffpir_sample(den: Denoiser, prox_fn: Optional[Callable],
                    plan: TrajectoryPlan, x_init: torch.Tensor, *,
-                   noise: NoiseFn, zeta: float = 0.25,
+                   noise: NoiseFn, zeta=0.25, iter_num_U: int = 1,
+                   generate_mode: str = "DiffPIR",
                    y: Optional[torch.Tensor] = None,
                    mask: Optional[torch.Tensor] = None,
-                   recover_known: bool = False) -> torch.Tensor:
+                   recover_known: bool = False,
+                   progress_slots: Optional[np.ndarray] = None,
+                   lam_scale=None):
     """Run the DiffPIR trajectory; returns the restored image in [0, 1].
 
-    Steps 0..n-2 each do denoise -> (prox) -> renoise; the renoise is skipped
-    on rows whose ``plan.renoise`` is False (duplicate-of-last quad rows).
-    ``recover_known`` overwrites the observed pixels at the end
-    (``main_ddpir.py:475-476``).
+    Steps 0..n-2 each do ``iter_num_U`` times (repaint injection) -> denoise
+    -> (prox, DiffPIR mode only) -> renoise; at the last inner repeat the
+    renoise is skipped on rows whose ``plan.renoise`` is False
+    (duplicate-of-last quad rows), and so is the set-back before the other
+    repeats.  ``zeta`` and ``lam_scale`` (which scales the plan's rho) are
+    floats or per-sample (B,) values.  ``recover_known`` overwrites the
+    observed pixels at the end (``main_ddpir.py:475-476``).  With
+    ``progress_slots`` (length n_steps, slot index or -1) it returns
+    ``(x01, frames)``: frames (n_slots, B, H, W, C) in [0, 1], the slot of
+    the skipped final step holding the final state.
     """
-    zeta32 = np.float32(zeta)
-    sqrt_zeta = float(np.sqrt(zeta32))
-    sqrt_1m_zeta = float(np.sqrt(np.float32(1.0) - zeta32))
+    use_prox = generate_mode == "DiffPIR" and prox_fn is not None
+    if np.ndim(zeta):
+        zeta_b = per_sample(zeta, x_init)
+        sqrt_zeta, sqrt_1m_zeta = torch.sqrt(zeta_b), torch.sqrt(1.0 - zeta_b)
+    else:
+        zeta32 = np.float32(zeta)
+        sqrt_zeta = float(np.sqrt(zeta32))
+        sqrt_1m_zeta = float(np.sqrt(np.float32(1.0) - zeta32))
+    lam_b = per_sample(lam_scale, x_init)
+    y2 = None if y is None else (2.0 * y - 1.0).float()
+    frames = None
+    if progress_slots is not None:
+        frames = torch.zeros((int(progress_slots.max()) + 1,) + tuple(x_init.shape),
+                             dtype=torch.float32, device=x_init.device)
     x = x_init.float()
+    shape = tuple(x.shape)
+    f32 = np.float32
     for i in range(plan.n_steps - 1):
         sa_t, s1m_t = float(plan.sqrt_acp_t[i]), float(plan.sqrt_1m_acp_t[i])
         sa_p, s1m_p = float(plan.sqrt_acp_prev[i]), float(plan.sqrt_1m_acp_prev[i])
         eta_sigma = float(plan.eta_sigma[i])
-        x0 = denoise_x0(den, x, int(plan.t[i]))
-        if prox_fn is not None and plan.prox[i]:
-            x0 = prox_fn(x0, float(plan.rho[i]))
-        eps_hat = (x - sa_t * x0) / s1m_t
-        n1 = noise(i, 0, "n1", tuple(x.shape))
-        n2 = noise(i, 0, "n2", tuple(x.shape))
-        dir_coef = math.sqrt(max(np.float32(s1m_p) ** 2 - np.float32(eta_sigma) ** 2, 0.0))
-        if plan.renoise[i]:
-            x = (sa_p * x0 + sqrt_1m_zeta * (dir_coef * eps_hat + eta_sigma * n1)
-                 + sqrt_zeta * s1m_p * n2)
+        dir_coef = math.sqrt(max(f32(s1m_p) ** 2 - f32(eta_sigma) ** 2, 0.0))
+        renoise = bool(plan.renoise[i])
+        for u in range(iter_num_U):
+            if generate_mode == "repaint":
+                noised_known = sa_t * y2 + s1m_t * noise(i, u, "rp", shape)
+                x = noised_known * mask + (1.0 - mask) * x
+            x0 = denoise_x0(den, x, int(plan.t[i]))
+            if use_prox and plan.prox[i]:
+                tau = float(plan.rho[i]) if lam_b is None else float(plan.rho[i]) * lam_b
+                x0 = prox_fn(x0, tau)
+            eps_hat = (x - sa_t * x0) / s1m_t
+            n1 = noise(i, u, "n1", shape)
+            n2 = noise(i, u, "n2", shape)
+            last_u = u == iter_num_U - 1
+            if renoise or not last_u:
+                x = (sa_p * x0 + sqrt_1m_zeta * (dir_coef * eps_hat + eta_sigma * n1)
+                     + sqrt_zeta * s1m_p * n2)
+            if not last_u and renoise:
+                # set x_{t-1} back to x_t for the next inner repeat
+                # (main_ddpir.py:462-467)
+                sae = f32(sa_t) / f32(sa_p)
+                var = f32(s1m_t) ** 2 - sae ** 2 * f32(s1m_p) ** 2
+                x = float(sae) * x + float(np.sqrt(max(var, 0.0))) * noise(
+                    i, u, "n3", shape)
+        if frames is not None and progress_slots[i] >= 0:
+            frames[int(progress_slots[i])] = x * 0.5 + 0.5
     if recover_known and mask is not None:
-        y2 = (2.0 * y - 1.0).float()
+        x = mask * y2 + (1.0 - mask) * x
+    x01 = x * 0.5 + 0.5
+    if frames is None:
+        return x01
+    if progress_slots[plan.n_steps - 1] >= 0:
+        frames[int(progress_slots[plan.n_steps - 1])] = x01
+    return x01, frames
+
+
+def xprev_sample(diffusion, model: Callable, plan: TrajectoryPlan,
+                 x_init: torch.Tensor, *, noise: NoiseFn, ddim: bool = False,
+                 y: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None,
+                 recover_known: bool = True, lam_scale=None) -> torch.Tensor:
+    """``model_output_type='pred_x_prev'`` trajectories; returns [0, 1].
+
+    Each step takes one ancestral (or DDIM) step of the base chain at t_i
+    (``main_ddpir.py:365-366, 414-419``); for inpainting the masked-average
+    prox is then applied to the sampled x on rows where ``plan.prox`` holds,
+    except the last.  There is no DiffPIR renoise, and the final step's
+    model call is used.  Deblur and SR pass ``mask=None``: the reference
+    applies no data term in this mode.  Build the plan with
+    ``rho_mode='xprev'``.  ``model`` is ``model_fn(den)``.
+    """
+    y2 = None if y is None else (2.0 * y - 1.0).float()
+    lam_b = per_sample(lam_scale, x_init)
+    n = plan.n_steps
+    step = diffusion.ddim_sample if ddim else diffusion.p_sample
+    x = x_init.float()
+    with torch.no_grad():
+        for i in range(n):
+            t_vec = torch.full((x.shape[0],), int(plan.t[i]), dtype=torch.int32,
+                               device=x.device)
+            x = step(model, x, t_vec, noise(i, 0, "xprev", tuple(x.shape)))["sample"]
+            if mask is not None and plan.prox[i] and i < n - 1:
+                tau = float(plan.rho[i]) if lam_b is None else float(plan.rho[i]) * lam_b
+                x = (mask * y2 + tau * x) / (mask + tau)
+    if recover_known and mask is not None:
         x = mask * y2 + (1.0 - mask) * x
     return x * 0.5 + 0.5

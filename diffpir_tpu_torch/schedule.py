@@ -23,7 +23,22 @@ __all__ = [
     "find_nearest",
     "make_seq",
     "build_plan",
+    "make_progress_slots",
 ]
+
+
+def make_progress_slots(n_steps: int, max_snapshots: int = 10) -> np.ndarray:
+    """Step -> snapshot-slot map (or -1), the reference's ``progress_seq``
+    policy: every len//10-th step plus the final one (``main_ddpir.py:336-338``)."""
+    stride = max(n_steps // max_snapshots, 1)
+    slots = np.full((n_steps,), -1, np.int32)
+    slot = 0
+    for i in range(0, n_steps, stride):
+        slots[i] = slot
+        slot += 1
+    if slots[n_steps - 1] < 0:
+        slots[n_steps - 1] = slot
+    return slots
 
 
 def find_nearest(table: np.ndarray, value: float) -> int:

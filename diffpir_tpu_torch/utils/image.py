@@ -7,7 +7,9 @@ Pillow.
 
   * ``psnr``        uint8 [0,255] images, border crop, fp64 MSE
   * ``psnr_batch``  mean per-image PSNR over a batch, max_pixel=2 for [-1,1]
-  * ``ssim``        MATLAB SSIM: 11x11 Gaussian sigma 1.5, valid-region crop
+  * ``psnr_region`` PSNR over a region's pixels only (inpainting holes)
+  * ``ssim``        MATLAB SSIM: 11x11 Gaussian sigma 1.5, valid-region crop,
+                    optionally averaged over a region
   * ``rgb_to_y``    MATLAB rgb2ycbcr Y channel
 """
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 from scipy.ndimage import correlate1d
@@ -24,7 +26,7 @@ from diffpir_tpu_torch.utils.png import read_png, write_png
 
 __all__ = [
     "list_images", "imread_uint", "imsave", "imsave_batch", "uint2single",
-    "single2uint", "modcrop", "shave", "psnr", "psnr_batch", "ssim",
+    "single2uint", "modcrop", "shave", "psnr", "psnr_batch", "psnr_region", "ssim",
     "rgb_to_y", "rgb_to_y_batch",
 ]
 
@@ -125,6 +127,25 @@ def psnr_batch(batch1: np.ndarray, batch2: np.ndarray, max_pixel: float = 2.0,
     return float(np.mean(vals))
 
 
+def psnr_region(img1: np.ndarray, img2: np.ndarray, region: np.ndarray,
+                max_pixel: float = 2.0) -> float:
+    """PSNR over the ``region > 0`` pixels of one image (fp64); ``region``
+    broadcasts against the image, e.g. (H, W, 1) against (H, W, C).  With
+    ``recover_known`` the observed pixels are pasted back exactly, so this
+    measures what the model painted into the hole."""
+    if img1.shape != img2.shape:
+        raise ValueError("Input images must have the same dimensions.")
+    w = np.broadcast_to(np.asarray(region, np.float64) > 0, img1.shape)
+    n = w.sum()
+    if n == 0:
+        return float("nan")
+    d = ((img1.astype(np.float64) - img2.astype(np.float64)) * w).ravel()
+    mse = np.einsum("i,i->", d, d) / n
+    if mse == 0:
+        return float("inf")
+    return float(20 * np.log10(max_pixel / np.sqrt(mse)))
+
+
 def _gaussian_kernel1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     ax = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
     k = np.exp(-(ax**2) / (2.0 * sigma**2))
@@ -139,7 +160,8 @@ def _gauss_filter_valid(x: np.ndarray, k1d: np.ndarray) -> np.ndarray:
     return y[wing:-wing, wing:-wing]
 
 
-def _ssim_single(img1: np.ndarray, img2: np.ndarray) -> float:
+def _ssim_single(img1: np.ndarray, img2: np.ndarray,
+                 region: Optional[np.ndarray] = None) -> float:
     C1, C2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
     img1 = img1.astype(np.float64)
     img2 = img2.astype(np.float64)
@@ -152,17 +174,32 @@ def _ssim_single(img1: np.ndarray, img2: np.ndarray) -> float:
     s12 = _gauss_filter_valid(img1 * img2, k1d) - mu1_mu2
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * s12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (s1 + s2 + C2))
-    return float(ssim_map.mean())
+    if region is None:
+        return float(ssim_map.mean())
+    # the SSIM map's mean over the region's pixels, on the same valid grid
+    wing = len(k1d) // 2
+    w = (np.asarray(region, np.float64) > 0)[wing:-wing, wing:-wing]
+    n = w.sum()
+    if n == 0:
+        return float("nan")
+    return float((ssim_map * w).sum() / n)
 
 
-def ssim(img1: np.ndarray, img2: np.ndarray, border: int = 0) -> float:
-    """MATLAB-style SSIM on [0,255] images; RGB averages per-channel SSIM."""
+def ssim(img1: np.ndarray, img2: np.ndarray, border: int = 0,
+         region: Optional[np.ndarray] = None) -> float:
+    """MATLAB-style SSIM on [0,255] images; RGB averages per-channel SSIM.
+    ``region`` (H, W), if given, averages the SSIM map over its pixels > 0
+    only (the inpainting hole metric)."""
     if img1.shape != img2.shape:
         raise ValueError("Input images must have the same dimensions.")
     img1, img2 = shave(img1, border), shave(img2, border)
+    if region is not None:
+        region = shave(region, border)
     if img1.ndim == 2:
-        return _ssim_single(img1, img2)
-    return float(np.mean([_ssim_single(img1[..., c], img2[..., c])
+        return _ssim_single(img1, img2, region)
+    if img1.shape[2] == 1:
+        return _ssim_single(img1[..., 0], img2[..., 0], region)
+    return float(np.mean([_ssim_single(img1[..., c], img2[..., c], region)
                           for c in range(img1.shape[2])]))
 
 

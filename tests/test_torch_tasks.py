@@ -175,12 +175,20 @@ def test_cli_deblur_sweep_is_one_point_at_7_lambda_3_zeta():
 
 
 def test_unported_options_are_refused():
+    """The DIY motion PSF, LPIPS and FID are still refused on the deblur and
+    SR paths; the first-order prox (sub_1_analytic=false) and the DPS modes
+    now build."""
     _, tcfg = _configs(DEBLUR, use_DIY_kernel=True, blur_mode="motion")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.Runner(tcfg, device="cpu")
     for path in (DEBLUR, SISR):
-        _, tcfg = _configs(path, sub_1_analytic=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for over in (dict(calc_LPIPS=True), dict(calc_FID=True)):
+            _, tcfg = _configs(path, **over)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                trunner.Runner(tcfg, device="cpu")
+        for over in (dict(sub_1_analytic=False), dict(generate_mode="DPS_y0"),
+                     dict(generate_mode="DPS_yt")):
+            _, tcfg = _configs(path, **over)
             trunner.Runner(tcfg, device="cpu")
 
 
