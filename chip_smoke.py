@@ -12,12 +12,14 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
   build      nvcc builds the kernels from diffpir_tpu_torch/kernels/csrc;
              ptxas must report no spills
   kernels    every CUDA kernel against its plain PyTorch version on the card,
-             at every shape four paths give it: demo32 (tiny_demo32, heads of
-             16), demo64 and DEMO256 (below) in fp32 and bf16, and the
-             diffusion_ffhq_10m topology (bf16,
-             batch 16, 256 px, seeded random weights: bench.py's workload) in
-             bf16 alone, since its fp32 copies of the 0.5 GB cases would
-             double the phase.  Each case is run twice and must repeat bit
+             at every shape five paths give it: demo32 (tiny_demo32, heads of
+             16), demo64 and DEMO256 (below) in fp32 and bf16, and, in bf16
+             alone (fp32 copies of their 0.5 GB cases would double the
+             phase), the diffusion_ffhq_10m topology (batch 16, 256 px,
+             seeded random weights: bench.py's workload) and
+             256x256_diffusion_uncond (553M, batch 1, 256 px: attention at
+             T = 1024 with 8 heads of 64 and at T = 256 and 64 with 16 heads,
+             GroupNorm up to C = 2048).  Each case is run twice and must repeat bit
              for bit; the fp32 high-mean, low-variance GroupNorm input is held
              to the plain version at 1e-3.  Kernel, plain and library-call
              times in two columns: "device", 20 calls captured in a CUDA
@@ -55,6 +57,29 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
   flagship   the DEMO256 topology (bf16, 256 px, batch 4, 20 NFE, seeded
              random weights) on testsets/demo256 with a 50% random mask,
              kernels against plain versions, ms per NFE
+  serve      the port's HTTP server (diffpir_tpu_torch.server_http) on
+             127.0.0.1 over a RestorationService of
+             configs/demo256_inpaint.yaml (trained 54M prior, bf16, 100 NFE,
+             service batch 4, max_wait 2000 ms), whose worker thread launches
+             the kernels: four concurrent npz requests (the testsets/demo256
+             observations) must come back 200, finite, within PSNR_TOL_DB of
+             the JAX package's PSNR, as one coalesced batch (launches = the
+             forwards times the kernels per forward); service.restore must
+             equal runner.restore_batch on the batch it built (1e-6); a
+             non-binary mask gets 400 and the next request, a 250x240 PNG,
+             gets a 250x240 PNG; a second service (configs/demo256_deblur.yaml,
+             20 NFE) takes a Levin09 PSF of 19x19, padded to 24x24; demo256's
+             weights through a guided-diffusion state dict (torch.save and
+             torch.load(weights_only=True) in memory) give the same forward;
+             seeded random weights of 256x256_diffusion_uncond (553M) in
+             guided-diffusion's layout, converted, run one bf16 forward
+             through the kernels within FLAGSHIP_FORWARD_REL_TOL of the
+             plain versions; and the CLI's --profile on tiny_demo32 (4 NFE)
+             writes a trace that names both kernels (into
+             .kernel_build/profile/, deleted after).  Prints latency p50/p95
+             (/stats), images per second and ms per NFE of the coalesced
+             batch beside the same batch without HTTP and the CLI's demo256
+             inpaint ms per NFE of phase tasks
 
 Any failure prints its traceback and exits non-zero with no result line.  On
 success the last lines are the kernels' JSON record, the card's name and
@@ -574,10 +599,312 @@ def grad_agreement(got, ref) -> tuple[float, float]:
     return rel, cos
 
 
+def http_post(opener, url: str, body: bytes, ctype: str):
+    """POST ``body``; returns (status, content type, body), errors included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with opener.open(req, timeout=600) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def npz_bytes(**arrays) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
 def bound(case) -> tuple[float, str]:
     t_bytes = case["bytes"] / PEAK_BYTES_PER_S * 1e3
     t_ops = case["flops"] / PEAK_FLOPS[case["dtype"]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
+    """Phase serve: the port's HTTP server on the card (see the module
+    docstring).  Returns what the record line and the log report."""
+    import io
+    import shutil
+    import threading
+    import urllib.request
+
+    import torch
+
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.data import make_batches, prepare_images
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.main import main as cli_main
+    from diffpir_tpu_torch.models import convert, zoo
+    from diffpir_tpu_torch.models.unet import UNet
+    from diffpir_tpu_torch.serve import RestorationService
+    from diffpir_tpu_torch.server_http import start_server
+    from diffpir_tpu_torch.utils import image as im
+    from diffpir_tpu_torch.utils.png import decode_png, encode_png
+
+    out = {}
+    over = {"save_E": False, "save_L": False}
+    cfg = load_config("configs/demo256_inpaint.yaml", over)
+    service = RestorationService(cfg, service_batch=4, max_wait_ms=2000)
+    if service.runner.weights_provenance != "demo" or service.runner.device.type != "cuda":
+        raise AssertionError(f"service weights {service.runner.weights_provenance!r} on "
+                             f"{service.runner.device}: expected the trained prior on the card")
+    warm_s = service.warmup((256, 256))
+    httpd = start_server(service, port=0, host="127.0.0.1")
+    host, port = httpd.server_address
+    url = f"http://{host}:{port}"
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    log(f"serve: demo256 inpaint service on {url}, batch 4, max_wait 2000 ms, warm-up "
+        f"{warm_s:.3f}s")
+    try:
+        np.random.seed(cfg.seed)
+        items = prepare_images(cfg)
+        gt = np.stack([it["img_H"] for it in items]).astype(np.float32) / 255.0
+        forwards = forwards_per_batch(cfg)
+        per_forward = {"groupnorm_silu": sum(c[0] == "gn" for c in calls256),
+                       "legacy_qkv_attention": sum(c[0] == "attn" for c in calls256)}
+
+        # four concurrent requests: one coalesced launch
+        restores, batches = [], []  # seconds of each service.restore; batch sizes
+        orig_restore = service.restore
+
+        def timed_restore(*a, **kw):
+            t0 = time.perf_counter()
+            result = orig_restore(*a, **kw)  # fetched: the card's work is done
+            restores.append(time.perf_counter() - t0)
+            return result
+
+        service.restore = timed_restore
+        orig_restore_batch = service.runner.restore_batch
+
+        def counting(batch, *a, **kw):
+            batches.append(len(batch.names))
+            return orig_restore_batch(batch, *a, **kw)
+
+        service.runner.restore_batch = counting
+        answers = [None] * len(items)
+
+        def call(i):
+            body = npz_bytes(image=items[i]["img_L"], mask=items[i]["mask"])
+            t0 = time.perf_counter()
+            answers[i] = http_post(opener, url + "/restore", body, "application/x-npz") + (
+                time.perf_counter() - t0,)
+
+        def http_round():
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(len(items))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("an HTTP request did not return")
+
+        LAUNCHES.clear()
+        FN_CALLS.clear()
+        t0 = time.perf_counter()
+        http_round()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        restored = []
+        for i, (code, ctype, body, _) in enumerate(answers):
+            if code != 200 or ctype != "application/x-npz":
+                raise AssertionError(f"request {i}: {code} {ctype} {body[:200]!r}")
+            with np.load(io.BytesIO(body)) as z:
+                restored.append(z["restored"])
+        restored = np.stack(restored)
+        if restored.shape != gt.shape or not np.isfinite(restored).all():
+            raise AssertionError(f"answers of shape {restored.shape}, finite "
+                                 f"{np.isfinite(restored).all()}")
+        psnr = im.psnr_batch(restored * 2 - 1, gt * 2 - 1)
+        want = {k: v * forwards for k, v in per_forward.items()}
+        if batches != [len(items)] or launches != want:
+            raise AssertionError(f"the {len(items)} requests ran as batches {batches} with "
+                                 f"launches {launches}; expected one batch, {want}")
+        if FN_CALLS:
+            raise AssertionError(f"the serve path entered autograd.Functions: "
+                                 f"{dict(FN_CALLS)}")
+        if not abs(psnr - JAX_DEMO256_INPAINT_PSNR) <= PSNR_TOL_DB:
+            raise AssertionError(f"served PSNR {psnr} is not within {PSNR_TOL_DB} dB of "
+                                 f"the JAX package's {JAX_DEMO256_INPAINT_PSNR}")
+        with opener.open(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        batch_s = restores[0]
+        out.update(launches=launches, psnr=psnr, forwards=forwards, wall_s=wall,
+                   client_latency_s=[a[3] for a in answers],
+                   p50_latency_s=stats["p50_latency_s"],
+                   p95_latency_s=stats["p95_latency_s"], batch_s=batch_s,
+                   images_per_s=len(items) / batch_s,
+                   ms_per_nfe=batch_s * 1e3 / forwards, cli_ms_per_nfe=cli_ms_nfe)
+        log(f"serve: {len(items)} concurrent npz requests -> one batch, launches "
+            f"{launches} ({forwards} forwards x {per_forward}); PSNR {psnr:.4f} dB (JAX "
+            f"CPU {JAX_DEMO256_INPAINT_PSNR:.4f}); latency p50 "
+            f"{stats['p50_latency_s']:.4f}s p95 {stats['p95_latency_s']:.4f}s (/stats; the "
+            f"first request waits out max_wait for more); coalesced batch {batch_s:.4f}s = "
+            f"{len(items) / batch_s:.4f} img/s, {batch_s * 1e3 / forwards:.4f} ms per NFE "
+            f"(the CLI's demo256 inpaint in phase tasks: {cli_ms_nfe:.4f})")
+
+        # the same batch through the worker thread without HTTP (submit from
+        # this thread), through service.restore and through the runner alone
+        # on this thread, in turns with HTTP: what the handler threads and
+        # the service's host work cost the dispatching thread
+        obs = [it["img_L"] for it in items]
+        masks = [it["mask"] for it in items]
+        cli_batch = make_batches(items, len(items))[0]
+        nfe_ms = {"http": [out["ms_per_nfe"]], "submit": [], "restore": [], "runner": []}
+        order = ("submit", "restore", "runner", "runner", "restore", "submit", "http")
+        for kind in order:
+            restores.clear()
+            t0 = time.perf_counter()
+            if kind == "http":
+                http_round()
+            elif kind == "submit":
+                futs = [service.submit(o, mask=m) for o, m in zip(obs, masks)]
+                [f.result(timeout=900) for f in futs]
+            elif kind == "restore":
+                service.restore(obs, masks=masks)
+            else:
+                orig_restore_batch(cli_batch, seed=0)  # fetched
+                restores.append(time.perf_counter() - t0)
+            nfe_ms[kind].append(restores[0] * 1e3 / forwards)
+        out["ms_per_nfe_by_route"] = nfe_ms
+        log(f"serve: ms per NFE of the same batch, in turns http, {', '.join(order)}: "
+            f"{nfe_ms}")
+
+        # the service is transparent: service.restore == runner.restore_batch
+        restores.clear()
+        handed = []
+        service.runner.restore_batch = lambda batch, *a, **kw: (
+            handed.append((batch, kw.get("seed"))) or orig_restore_batch(batch, *a, **kw))
+        via_service = np.stack(service.restore(obs, masks=masks, seed=7))
+        service.runner.restore_batch = orig_restore_batch
+        (batch, seed), = handed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = orig_restore_batch(batch, seed=seed)
+        direct_s = time.perf_counter() - t0
+        delta = float(np.abs(via_service - direct).max())
+        out.update(transparency_max_abs=delta, direct_service_ms_per_nfe=restores[0] * 1e3
+                   / forwards, direct_runner_ms_per_nfe=direct_s * 1e3 / forwards)
+        log(f"serve: service.restore vs runner.restore_batch (seed {seed}): max |diff| "
+            f"{delta:.3e}; ms per NFE without HTTP: service "
+            f"{out['direct_service_ms_per_nfe']:.4f}, runner "
+            f"{out['direct_runner_ms_per_nfe']:.4f}")
+        if not delta <= 1e-6:
+            raise AssertionError(f"service.restore differs from restore_batch by {delta}")
+
+        # a bad request gets 400 and the server answers the next: a PNG of
+        # a size the UNet cannot take as it is (padded to 256, cropped back)
+        bad_mask = items[0]["mask"] * 0.5
+        code, _, body = http_post(opener, url + "/restore",
+                                  npz_bytes(image=items[0]["img_L"], mask=bad_mask),
+                                  "application/x-npz")
+        if code != 400 or b"binary" not in body:
+            raise AssertionError(f"a non-binary mask got {code} {body[:200]!r}")
+        png = encode_png(items[1]["img_H"][:250, :240])
+        code, ctype, body = http_post(opener, url + "/restore", png, "image/png")
+        shape = decode_png(body).shape if code == 200 and ctype == "image/png" else None
+        if shape != (250, 240, 3):
+            raise AssertionError(f"PNG request: {code} {ctype} shape {shape}")
+        log(f"serve: non-binary mask -> 400; then a 250x240 PNG -> 200, a PNG of {shape}")
+
+        # deblur on a second service: a Levin09 PSF of odd size, padded to a
+        # multiple of 8
+        dcfg = load_config("configs/demo256_deblur.yaml", {**over, "iter_num": 20})
+        deblur = RestorationService(dcfg)
+        np.random.seed(dcfg.seed)
+        ditem = prepare_images(dcfg)[0]
+        kernels_seen = []
+        orig_d = deblur.runner.restore_batch
+        deblur.runner.restore_batch = lambda batch, *a, **kw: (
+            kernels_seen.append(batch.kernel.shape) or orig_d(batch, *a, **kw))
+        (dout,) = deblur.restore([ditem["img_L"]], kernels=[ditem["kernel"]])
+        dpsnr = im.psnr_batch(dout[None] * 2 - 1, ditem["img_H"][None] / 127.5 - 1)
+        if (kernels_seen != [(4, 24, 24)] or ditem["kernel"].shape != (19, 19)
+                or not np.isfinite(dout).all()):
+            raise AssertionError(f"deblur: PSF {ditem['kernel'].shape} handed as "
+                                 f"{kernels_seen}, finite {np.isfinite(dout).all()}")
+        log(f"serve: deblur service (20 NFE), Levin09 PSF {ditem['kernel'].shape} padded to "
+            f"{kernels_seen[0][1:]}: finite, PSNR {dpsnr:.4f} dB")
+        out["deblur_psnr_20nfe"] = dpsnr
+        del deblur
+
+        # the .pt route: demo256's weights out to guided-diffusion's layout,
+        # through torch.save/torch.load(weights_only=True), back in
+        npz_model = service.runner.model
+        buf = io.BytesIO()
+        torch.save(convert.to_guided_state_dict(npz_model.state_dict()), buf)
+        buf.seek(0)
+        pt_model = UNet(npz_model.cfg, dtype=npz_model.dtype)
+        pt_model.load_state_dict(convert.convert_state_dict(
+            torch.load(buf, map_location="cpu", weights_only=True)))
+        pt_model = pt_model.to(dev).eval()
+        x = torch.randn((4, 256, 256, 3), generator=gen, device=dev)
+        t = torch.tensor([999, 500, 250, 10], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            same = torch.equal(pt_model(x, t), npz_model(x, t))
+        log(f"serve: demo256 through a .pt state dict in memory: forward equal to the "
+            f"npz-loaded model's: {same}")
+        if not same:
+            raise AssertionError("the .pt round trip changed the demo256 forward")
+        del pt_model
+
+        # 256x256_diffusion_uncond (553M), seeded random weights in
+        # guided-diffusion's layout, converted; one bf16 forward at batch 1
+        ucfg = zoo.MODEL_ZOO_CONFIGS["256x256_diffusion_uncond"]
+        guided = convert.to_guided_state_dict(zoo.init_random_(UNet(ucfg), 0).state_dict())
+        port_sd = convert.convert_state_dict(guided)
+        del guided
+        fwd = {}
+        x1 = torch.randn((1, 256, 256, 3), generator=gen, device=dev)
+        for route in ("cuda", "plain"):
+            m = UNet(ucfg, dtype=torch.bfloat16, kernels=route)
+            m.load_state_dict(port_sd)
+            m = m.to(dev).eval()
+            LAUNCHES.clear()
+            with torch.no_grad():
+                fwd[route] = m(x1, t[:1]).float()
+            torch.cuda.synchronize()
+            fwd[route + "_launches"] = dict(LAUNCHES)
+            del m
+        del port_sd
+        torch.cuda.empty_cache()
+        rel = float((fwd["cuda"] - fwd["plain"]).abs().max() / fwd["plain"].abs().max())
+        n553 = per_fwd[("uncond553m b1", "gn")]["calls"], per_fwd[("uncond553m b1",
+                                                                    "attn")]["calls"]
+        want553 = {"groupnorm_silu": n553[0], "legacy_qkv_attention": n553[1]}
+        log(f"serve: 256x256_diffusion_uncond (553M) from a guided-diffusion state dict, "
+            f"bf16 b1: max |kernel - plain| / max |plain| = {rel:.3e}; launches "
+            f"{fwd['cuda_launches']} (plain {fwd['plain_launches']})")
+        if fwd["cuda_launches"] != want553 or fwd["plain_launches"]:
+            raise AssertionError(f"553M launches {fwd['cuda_launches']}, expected {want553}")
+        if not rel <= FLAGSHIP_FORWARD_REL_TOL:
+            raise AssertionError(f"553M forward differs by {rel} (relative)")
+        out["uncond553m_forward_rel"] = rel
+
+        # --profile: a Chrome trace of a 4-NFE tiny_demo32 run holds both kernels
+        prof_dir = os.path.join(REPO, ".kernel_build", "profile")
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        cli_main(["--opt", "configs/demo32_inpaint.yaml", "--no-sweep", "--set", "iter_num=5",
+                  "--set", "save_E=false", "--set", "save_L=false", "--profile", prof_dir])
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+        shutil.rmtree(prof_dir)
+        gn_names = sorted(n for n in names if "gn_stats" in n or "gn_apply" in n)
+        attn_names = sorted(n for n in names if "attn_f32" in n or "attn_bf16" in n)
+        log(f"serve: --profile trace: {len(names)} event names, GroupNorm {gn_names}, "
+            f"attention {attn_names}")
+        if not gn_names or not attn_names:
+            raise AssertionError("the --profile trace lacks the port's kernels")
+    finally:
+        httpd.shutdown()
+        service.close()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -678,16 +1005,22 @@ def run(argv: list[str]) -> int:
             ffhq, torch.randn((16, 256, 256, 3), generator=gen, device=dev),
             t_probe.repeat(4))
         del ffhq
+        uncond = zoo.init_random_(UNet(zoo.MODEL_ZOO_CONFIGS["256x256_diffusion_uncond"],
+                                       dtype=torch.bfloat16, kernels="plain"),
+                                  0).to(dev).eval()
+        calls553 = record_kernel_calls(
+            uncond, torch.randn((1, 256, 256, 3), generator=gen, device=dev), t_probe[:1])
+        del uncond
         torch.cuda.empty_cache()
         paths = (("demo32", calls32), ("demo64", calls64), ("demo256", calls256),
-                 ("ffhq b16", callsffhq))
+                 ("ffhq b16", callsffhq), ("uncond553m b1", calls553))
         for name, calls in paths:
             log(f"{name}: {sum(c[0] == 'gn' for c in calls)} GroupNorm and "
                 f"{sum(c[0] == 'attn' for c in calls)} attention calls per forward")
 
         gn_keys, attn_keys = set(), set()
         for calls, dtypes in ((calls32 + calls64 + calls256, ("float32", "bfloat16")),
-                              (callsffhq, ("bfloat16",))):
+                              (callsffhq + calls553, ("bfloat16",))):
             for c in calls:
                 for dt in dtypes:
                     if c[0] == "gn":
@@ -817,7 +1150,7 @@ def run(argv: list[str]) -> int:
     with phase("tasks"):
         per_forward_calls = {"tiny_demo32": calls32, "demo64_hq": calls64,
                              "demo256": calls256}
-        task_launches = {}
+        task_launches, task_ms_nfe = {}, {}
         for name, opt, over, jax_psnr, n_seeds in TASK_RUNS:
             over = {"save_E": False, "save_L": False, **over}
             argv = ["--opt", opt, "--no-sweep"]
@@ -897,7 +1230,7 @@ def run(argv: list[str]) -> int:
             outs = [runner.restore_batch(b, seed=cfg.seed + bi)
                     for bi, b in enumerate(batches)]
             torch.cuda.synchronize()
-            ms_nfe = (time.perf_counter() - t0) * 1e3 / forwards
+            ms_nfe = task_ms_nfe[name] = (time.perf_counter() - t0) * 1e3 / forwards
             frames_note = ""
             if cfg.log_process:
                 n_slots = int(make_progress_slots(runner._plan(cfg.lambda_).n_steps).max()) + 1
@@ -1036,6 +1369,11 @@ def run(argv: list[str]) -> int:
         if not float(diff.mean()) <= FLAGSHIP_IMAGE_MEAN_TOL:
             raise AssertionError(f"flagship images differ by {float(diff.mean())} on average")
 
+    with phase("serve"):
+        serve_out = serve_phase(dev, gen, calls256, task_ms_nfe["demo256_inpaint"],
+                                per_fwd)
+        serve_launches = serve_out["launches"]
+
     record = {"kernels": []}
     for name, kind, source, replaces in (
             ("groupnorm_silu", "gn", "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
@@ -1048,7 +1386,8 @@ def run(argv: list[str]) -> int:
             "launches": main_launches.get(name, 0),
             "launches_per_path": {"main demo64_inpaint": main_launches.get(name, 0),
                                   **{f"tasks {t}": n.get(name, 0)
-                                     for t, n in task_launches.items()}},
+                                     for t, n in task_launches.items()},
+                                  "serve demo256_inpaint": serve_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
@@ -1061,7 +1400,9 @@ def run(argv: list[str]) -> int:
                      "calls",
             "demo32_per_forward": per_fwd[("demo32", kind)],
             "flagship_per_forward": per_fwd[("demo256", kind)],
-            "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)]})
+            "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)],
+            "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)]})
+    log("serve: " + json.dumps(serve_out))
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

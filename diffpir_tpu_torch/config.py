@@ -10,11 +10,12 @@ every config file of the repository is a flat ``key: value`` mapping.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 from typing import Any, Optional, Sequence
 
-__all__ = ["TaskConfig", "load_config", "read_flat_yaml"]
+__all__ = ["TaskConfig", "load_config", "read_flat_yaml", "parse_overrides"]
 
 _VALID_TASKS = ("sr", "deblur", "inpaint")
 _VALID_MODES = ("DiffPIR", "repaint", "vanilla", "DPS_y0", "DPS_yt")
@@ -339,3 +340,17 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> TaskC
     if unknown:
         raise ValueError(f"unknown config keys: {sorted(unknown)}")
     return TaskConfig(**data).finalize()
+
+
+def parse_overrides(pairs: list[str]) -> dict:
+    """``--set KEY=VALUE`` arguments -> overrides; a VALUE is parsed as JSON
+    when it can be, else kept as a string."""
+    overrides = {}
+    for kv in pairs:
+        k, _, v = kv.partition("=")
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        overrides[k] = v
+    return overrides

@@ -4,6 +4,7 @@
         [--set key=value ...] [--cpu] [--json]
     python -m diffpir_tpu_torch.main --opt configs/demo64_deblur.yaml \
         --tune 50,100,150:0.5 [--tune-index I] [--tune-images K]
+    python -m diffpir_tpu_torch.main --opt ... --profile DIR
 
 Runs the config's task (deblur, sr or inpaint) in its trajectory mode
 (``generate_mode``, ``model_output_type``, ...) on the CUDA card unless
@@ -12,13 +13,16 @@ was not asked for.  Without ``--no-sweep`` it evaluates every (lambda, zeta)
 of the reference's sweep (``runner.reference_sweep``).  ``--tune`` instead
 scores a grid of operating points on test images, all candidates of an image
 in one batch (``Runner.tune_operating_point``), and prints the table.
-``main(argv)`` can be called in-process and returns the list of result dicts
-(with ``--tune``, the per-candidate rows).
+``--profile DIR`` runs the evaluation (or the grid) under ``torch.profiler``
+(CPU and, on the card, CUDA activity) and writes a Chrome trace to
+``DIR/trace.json``.  ``main(argv)`` can be called in-process and returns the
+list of result dicts (with ``--tune``, the per-candidate rows).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -48,34 +52,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="average the --tune grid over K consecutive test "
                         "images from --tune-index on (one batch each)")
     p.add_argument("--json", action="store_true", help="print results as JSON")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "DIR/trace.json")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> list[dict]:
     args = parse_args(argv)
     from diffpir_tpu_torch import resolve_device
-    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.config import load_config, parse_overrides
     from diffpir_tpu_torch.runner import Runner
 
     device = resolve_device(args.cpu)
-    overrides = {}
-    for kv in args.set:
-        k, _, v = kv.partition("=")
-        try:
-            v = json.loads(v)
-        except json.JSONDecodeError:
-            pass
-        overrides[k] = v
-    cfg = load_config(args.opt, overrides)
+    cfg = load_config(args.opt, parse_overrides(args.set))
 
     if cfg.save_E or cfg.save_L:
         os.makedirs(cfg.E_path, exist_ok=True)
         shutil.copyfile(args.opt, os.path.join(cfg.E_path, "config.yaml"))
 
     runner = Runner(cfg, device=device)
-    if args.tune:
-        return tune(runner, args)
-    results = [runner.evaluate()] if args.no_sweep else runner.evaluate_sweep()
+    with profiled(args.profile, device):
+        if args.tune:
+            return tune(runner, args)
+        results = [runner.evaluate()] if args.no_sweep else runner.evaluate_sweep()
     if len(results) > 1:
         best = max(results, key=lambda r: r["psnr"])
         print("sweep summary:")
@@ -88,6 +88,25 @@ def main(argv=None) -> list[dict]:
         json.dump(results, sys.stdout, indent=2, default=float)
         print()
     return results
+
+
+@contextlib.contextmanager
+def profiled(out_dir, device):
+    """``torch.profiler`` over the block when ``out_dir`` is given (CUDA
+    activity too on the card), its Chrome trace written to
+    ``out_dir/trace.json``."""
+    if out_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
 def tune(runner, args: argparse.Namespace) -> list[dict]:

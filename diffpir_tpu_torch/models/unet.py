@@ -118,6 +118,25 @@ def _avgpool2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 
+class Upsample(Conv):
+    """Nearest 2x then a 3x3 conv: the up step of ``resblock_updown=False``
+    (reference ``unet.py:83-110``; its stride-2 down step is a ``Conv``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(_upsample2x(x))
+
+
+class Resample(nn.Module):
+    """A resampling step without weights (``conv_resample=False``)."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
 class ResBlock(nn.Module):
     """Residual block with FiLM conditioning and optional up/down sampling
     (reference ``unet.py:143-256``)."""
@@ -206,21 +225,21 @@ class UNetConfig:
 class UNet(nn.Module):
     """guided-diffusion UNet on NHWC tensors.
 
-    forward(x: (B,H,W,C) in [-1,1], t: (B,) integer base timesteps)
-    -> (B,H,W,out_channels) in the compute dtype.
+    forward(x: (B,H,W,C) in [-1,1], t: (B,) integer base timesteps,
+            y: (B,) integer class labels, given exactly when the config has
+            ``num_classes``) -> (B,H,W,out_channels) in the compute dtype.
 
     Convolution and dense weights are stored in the compute dtype (the JAX
     package casts its fp32 parameters to it at each call); GroupNorm
-    parameters stay fp32.
+    parameters and the class embedding's table stay fp32.  With
+    ``resblock_updown=False`` a level changes resolution by a stride-2 conv
+    (down) and nearest upsampling followed by a conv (up), or without the
+    convs when ``conv_resample=False``.
     """
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
                  kernels: str = "cuda"):
         super().__init__()
-        if cfg.num_classes is not None or not cfg.resblock_updown:
-            raise NotImplementedError(
-                "class-conditional UNets and resblock_updown=False are not "
-                "ported yet (ROADMAP.md queue A)")
         self.cfg = cfg
         self.dtype = dtype
         self.kernels = _check_route(kernels)
@@ -228,6 +247,8 @@ class UNet(nn.Module):
         time_dim = mc * 4
         self.time_embed_0 = nn.Linear(mc, time_dim)
         self.time_embed_2 = nn.Linear(time_dim, time_dim)
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, time_dim)
 
         def res(name, cin, cout, **kw):
             setattr(self, name, ResBlock(
@@ -256,7 +277,13 @@ class UNet(nn.Module):
                 skip_chans.append(ch)
                 idx += 1
             if level != len(cfg.channel_mult) - 1:
-                self._inputs.append([res(f"input_blocks_{idx}_0", ch, ch, down=True)])
+                name = f"input_blocks_{idx}_0"
+                if cfg.resblock_updown:
+                    res(name, ch, ch, down=True)
+                else:
+                    setattr(self, name, Conv(ch, ch, 3, stride=2) if cfg.conv_resample
+                            else Resample(_avgpool2x))
+                self._inputs.append([name])
                 skip_chans.append(ch)
                 ds *= 2
                 idx += 1
@@ -276,7 +303,13 @@ class UNet(nn.Module):
                     names.append(attn(f"output_blocks_{idx}_1", ch))
                     j = 2
                 if level and i == cfg.num_res_blocks:
-                    names.append(res(f"output_blocks_{idx}_{j}", ch, ch, up=True))
+                    name = f"output_blocks_{idx}_{j}"
+                    if cfg.resblock_updown:
+                        res(name, ch, ch, up=True)
+                    else:
+                        setattr(self, name, Upsample(ch, ch) if cfg.conv_resample
+                                else Resample(_upsample2x))
+                    names.append(name)
                     ds //= 2
                 self._outputs.append(names)
                 idx += 1
@@ -291,9 +324,15 @@ class UNet(nn.Module):
         layer = getattr(self, name)
         return layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (y is None) != (self.cfg.num_classes is None):
+            raise ValueError("pass class labels y exactly when the model has "
+                             "num_classes")
         emb = timestep_embedding(t, self.cfg.model_channels).to(self.dtype)
         emb = self.time_embed_2(F.silu(self.time_embed_0(emb)))
+        if y is not None:
+            emb = emb + self.label_emb(y).to(self.dtype)
         h = x.to(self.dtype)
         hs = []
         for names in self._inputs:

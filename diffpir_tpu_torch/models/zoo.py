@@ -1,12 +1,19 @@
 """Model zoo: UNet configurations by name, and weights for them.
 
-Port of ``diffpir_tpu/models/zoo.py``.  Weights come from the JAX package's
-flat ``.flax.npz`` files (``<model_zoo>/<name>.flax.npz``, then
-``assets/demo/<name>.flax.npz``) and are carried into a PyTorch state dict in
-memory by ``flax_to_torch``; no converted copy is written anywhere.  A model
-with no weights file gets seeded random weights (``init_random_``), with a
-warning.  Guided-diffusion ``.pt`` checkpoints are not read yet (ROADMAP.md
-queue A).
+Port of ``diffpir_tpu/models/zoo.py``.  Weights are looked for in the JAX
+package's order (``diffpir_tpu/models/zoo.py:134-214``):
+
+1. ``<model_zoo>/<name>.flax.npz``, the JAX package's converted cache, unless
+   a newer ``<model_zoo>/<name>.pt`` sits beside it (provenance "cache");
+2. ``<model_zoo>/<name>.pt``, a guided-diffusion checkpoint converted in
+   memory by ``models.convert`` ("checkpoint");
+3. ``assets/demo/<name>.flax.npz``, a repo-trained demo prior ("demo");
+4. seeded random weights (``init_random_``), with a warning ("random").
+
+The flat npz files are carried into a PyTorch state dict in memory by
+``flax_to_torch``.  Unlike the JAX package, the port writes no converted
+cache anywhere.  Still queued (ROADMAP.md queue A): the classifier variants
+of ``diffpir_tpu/models/variants.py`` and the summaries of ``summary.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from diffpir_tpu_torch import resolve_device
+from diffpir_tpu_torch.models.convert import load_torch_checkpoint
 from diffpir_tpu_torch.models.unet import UNet, UNetConfig
 
 __all__ = ["MODEL_ZOO_CONFIGS", "TINY_TEST_CONFIG", "DEMO_HQ_CONFIG",
@@ -103,8 +111,8 @@ def flax_to_torch(flat_params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
     """JAX-package parameters -> a state dict of the port's ``UNet``.
 
     conv kernel HWIO -> weight OIHW; dense kernel (in, out) -> weight
-    (out, in); GroupNorm scale -> weight; biases as they are.  Module paths
-    keep their names, ``/`` becoming ``.``.
+    (out, in); GroupNorm scale and the class embedding's table -> weight;
+    biases as they are.  Module paths keep their names, ``/`` becoming ``.``.
     """
     sd = {}
     for key, v in flat_params.items():
@@ -114,7 +122,7 @@ def flax_to_torch(flat_params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
             v = v.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and v.ndim == 2:
             v = v.T
-        elif leaf not in ("scale", "bias"):
+        elif leaf not in ("scale", "bias", "embedding"):
             raise KeyError(f"unexpected parameter {key!r}")
         name = "bias" if leaf == "bias" else "weight"
         sd[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(v))
@@ -141,8 +149,9 @@ def init_random_(model: UNet, seed: int) -> UNet:
 
 class ResolvedModel(NamedTuple):
     """The model, ready on its device, and where its weights came from:
-    "cache" (``<model_zoo>/<name>.flax.npz``), "demo" (a prior under
-    ``assets/demo``) or "random"."""
+    "cache" (``<model_zoo>/<name>.flax.npz``), "checkpoint"
+    (``<model_zoo>/<name>.pt``), "demo" (a prior under ``assets/demo``) or
+    "random"."""
 
     model: UNet
     provenance: str
@@ -161,19 +170,22 @@ def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
         device = resolve_device(cpu=False)
     cfg = model_config_for(model_name)
     model = UNet(cfg, dtype=dtype, kernels=kernels)
-    candidates = [(os.path.join(model_zoo, f"{model_name}.flax.npz"), "cache"),
-                  (os.path.join(_REPO, "assets", "demo", f"{model_name}.flax.npz"),
-                   "demo")]
-    for path, provenance in candidates:
-        if os.path.exists(path):
-            model.load_state_dict(flax_to_torch(load_params_npz(path)))
-            break
+    npz_path = os.path.join(model_zoo, f"{model_name}.flax.npz")
+    pt_path = os.path.join(model_zoo, f"{model_name}.pt")
+    demo_path = os.path.join(_REPO, "assets", "demo", f"{model_name}.flax.npz")
+    # the cache holds only while it is at least as new as the checkpoint
+    if os.path.exists(npz_path) and not (
+            os.path.exists(pt_path)
+            and os.path.getmtime(pt_path) > os.path.getmtime(npz_path)):
+        model.load_state_dict(flax_to_torch(load_params_npz(npz_path)))
+        provenance = "cache"
+    elif os.path.exists(pt_path):
+        model.load_state_dict(load_torch_checkpoint(pt_path))
+        provenance = "checkpoint"
+    elif os.path.exists(demo_path):
+        model.load_state_dict(flax_to_torch(load_params_npz(demo_path)))
+        provenance = "demo"
     else:
-        pt_path = os.path.join(model_zoo, f"{model_name}.pt")
-        if os.path.exists(pt_path):
-            raise NotImplementedError(
-                f"{pt_path}: guided-diffusion .pt checkpoints are not read by "
-                "the port yet; convert it with the JAX package first")
         log.warning("no weights for %r under %s or assets/demo — using RANDOM "
                     "weights (restorations will be meaningless)", model_name,
                     model_zoo)

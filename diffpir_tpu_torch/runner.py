@@ -8,12 +8,15 @@ at ``:226-313``, ``restore_batch``, ``evaluate``, ``evaluate_sweep`` and
 repaint and vanilla with ``iter_num_U`` inner repeats and progress
 snapshots, ``pred_x_prev`` (ancestral or DDIM), DPS_y0 and DPS_yt, and the
 first-order prox of ``sub_1_analytic=false``.  ``lambda_`` and ``zeta`` may
-be per-sample.  Metrics: batched PSNR on [-1,1] with max_pixel=2, the
-reference's PSNR-Y composition, SSIM, and PSNR/SSIM over inpainting holes.
-Restored and degraded images, progress strips and the inpainting mask are
-written as PNGs under ``results/<result_name>/`` when saving.  Still queued
-(ROADMAP.md queue A): ``test_mode``, the DIY motion PSF, the device mesh,
-LPIPS/FID, ``save_LEH`` and AOT export.
+be per-sample.  ``test_mode`` 1-4 wraps the UNet in ``inference.test_mode``
+(pad, recursive split, x8 ensemble).  Metrics: batched PSNR on [-1,1] with
+max_pixel=2, the reference's PSNR-Y composition, SSIM, and PSNR/SSIM over
+inpainting holes.  Restored and degraded images, progress strips, the
+inpainting mask, each deblurring PSF and the L|E|H montage of ``save_LEH``
+are written as PNGs under ``results/<result_name>/`` when saving.
+``evaluate`` dispatches batch i+1 before it fetches batch i
+(``overlap_dispatch``).  Still queued (ROADMAP.md queue A): the DIY motion
+PSF, the device mesh, LPIPS/FID and AOT export.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from diffpir_tpu_torch import resolve_device
+from diffpir_tpu_torch import inference, resolve_device
 from diffpir_tpu_torch.config import TaskConfig
 from diffpir_tpu_torch.data import Batch, make_batches, prepare_images
 from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
@@ -40,7 +43,24 @@ from diffpir_tpu_torch.sampler import (diffpir_sample, generator_noise, init_x,
 from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan, make_progress_slots
 from diffpir_tpu_torch.utils import image as im
 
-__all__ = ["Runner", "reference_sweep", "setup_logger"]
+__all__ = ["Runner", "reference_sweep", "setup_logger", "overlap_dispatch"]
+
+
+def overlap_dispatch(items, dispatch, consume) -> None:
+    """Dispatch item i+1 before consuming item i (``diffpir_tpu/runner.py:47-68``).
+
+    ``dispatch(i, item) -> out`` must not wait for the device;
+    ``consume(i, item, out, t_dispatch)`` fetches and post-processes, so the
+    host's work on one batch overlaps the card's on the next."""
+    pending = None
+    for i, item in enumerate(items):
+        t0 = time.perf_counter()
+        out = dispatch(i, item)
+        if pending is not None:
+            consume(*pending)
+        pending = (i, item, out, t0)
+    if pending is not None:
+        consume(*pending)
 
 
 def setup_logger(name: str, log_path: Optional[str] = None) -> logging.Logger:
@@ -79,18 +99,36 @@ def _check_supported(cfg: TaskConfig) -> None:
     unported = []
     if cfg.task == "deblur" and cfg.use_DIY_kernel and cfg.blur_mode != "Gaussian":
         unported.append(f"use_DIY_kernel with blur_mode={cfg.blur_mode!r}")
-    if cfg.test_mode:
-        unported.append(f"test_mode={cfg.test_mode}")
     if cfg.mesh_shape is not None:
         unported.append("mesh_shape")
-    for flag in ("calc_LPIPS", "calc_FID", "save_LEH"):
+    for flag in ("calc_LPIPS", "calc_FID"):
         if getattr(cfg, flag):
             unported.append(flag)
     if unported:
         raise NotImplementedError(
-            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A: test_mode, "
-            "the DIY motion PSF, the device mesh, LPIPS/FID and save_LEH): "
-            + ", ".join(unported))
+            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A: the DIY "
+            "motion PSF, the device mesh and LPIPS/FID): " + ", ".join(unported))
+
+
+def leh_montage(batch: Batch, x0: np.ndarray, sf: int) -> np.ndarray:
+    """The L|E|H montage of ``save_LEH`` (``diffpir_tpu/runner.py:572-589``;
+    reference ``main_ddpir_sisr.py:440-451``): the observation upscaled by
+    nearest neighbour to the output size, with the original observation in
+    its top-left corner and the PSF (scaled to its maximum, 3x nearest) in
+    its top-right corner, then the restoration and the ground truth."""
+    nb = len(batch.names)
+    L_up = np.repeat(np.repeat(batch.img_L[:nb], sf, axis=1), sf, axis=2).copy()
+    hl, wl = batch.img_L.shape[1:3]
+    for j in range(nb):
+        k = batch.kernel[j]
+        if k.size > 1:
+            kv = np.repeat(np.repeat(k / max(k.max(), 1e-12), 3, axis=0), 3, axis=1)
+            kh = min(kv.shape[0], L_up.shape[1])
+            kw = min(kv.shape[1], L_up.shape[2])
+            L_up[j, :kh, -kw:, :] = kv[:kh, :kw, None]
+        L_up[j, :hl, :wl] = batch.img_L[j]
+    gt = batch.img_H[:nb].astype(np.float32) / 255.0
+    return np.concatenate([L_up, x0[:nb], gt], axis=2)
 
 
 class Runner:
@@ -133,9 +171,27 @@ class Runner:
         self.model, self.weights_provenance = resolve_model(
             cfg.model_name, cfg.model_zoo, dtype=self.dtype, device=self.device,
             kernels=kernels)
-        self.den = make_denoiser(self.model, self.schedule, compute_dtype=self.dtype)
+        self.den = make_denoiser(self._test_mode_model(), self.schedule,
+                                 compute_dtype=self.dtype)
         self.diffusion = Diffusion(self.schedule, ModelMeanType.EPSILON,
                                    ModelVarType.LEARNED_RANGE)
+
+    def _test_mode_model(self):
+        """The UNet, wrapped in the reference's evaluation modes when
+        ``test_mode`` asks (``diffpir_tpu/runner.py:184-201``): every call
+        of a wrapped model runs at the first sample's timestep."""
+        model = self.model
+        if not self.cfg.test_mode:
+            return model
+        mcfg = model.cfg
+        depth_mod = 2 ** (len(mcfg.channel_mult) - 1)
+
+        def wrapped(x, t):
+            return inference.test_mode(
+                lambda v: model(v, t[:1].expand(v.shape[0])), x, mode=self.cfg.test_mode,
+                refield=32, min_size=mcfg.image_size, modulo=depth_mod)
+
+        return wrapped
 
     def _plan(self, lambda_: float):
         # the cumulative sigma-bar weights rho only for pred_xstart with
@@ -229,10 +285,12 @@ class Runner:
                 mask=mask, recover_known=inpaint and cfg.recover_known,
                 progress_slots=slots, lam_scale=lam_scale)
 
-    def restore_batch(self, batch: Batch, lambda_=None, zeta=None, seed: int = 0):
+    def restore_batch(self, batch: Batch, lambda_=None, zeta=None, seed: int = 0,
+                      fetch: bool = True):
         """Restore one batch; returns float [0,1] (B,H,W,C) numpy, or
         ``(x, frames)`` with ``log_process``.  ``lambda_``/``zeta`` may be
-        per-sample sequences (see ``restore``)."""
+        per-sample sequences (see ``restore``).  ``fetch=False`` returns the
+        tensors on the runner's device without waiting for the card."""
         lambda_ = self.cfg.lambda_ if lambda_ is None else lambda_
         zeta = self.cfg.zeta if zeta is None else zeta
 
@@ -241,6 +299,8 @@ class Runner:
 
         out = self.restore(dev(batch.img_L), dev(batch.mask), lambda_, zeta, seed,
                            kernel=dev(batch.kernel), init=dev(batch.init))
+        if not fetch:
+            return out
         if isinstance(out, tuple):
             return tuple(o.cpu().numpy() for o in out)
         return out.cpu().numpy()
@@ -252,7 +312,8 @@ class Runner:
                  hole_metrics: bool = False) -> dict:
         """Test-set evaluation with the JAX package's metrics and logging.
 
-        Batch ``bi`` draws its noise from seed ``cfg.seed + bi``.
+        Batch ``bi`` draws its noise from seed ``cfg.seed + bi``; batch
+        ``bi + 1`` is dispatched before batch ``bi`` is fetched and scored.
         ``hole_metrics=True`` (inpainting) adds ``psnr_hole``/``ssim_hole``:
         PSNR and SSIM over the masked-out (mask == 0) pixels only, which
         ``recover_known`` does not dilute."""
@@ -278,13 +339,15 @@ class Runner:
         psnrs_hole, ssims_hole = [], []
         if save and cfg.task == "inpaint" and cfg.save_progressive_mask:
             im.imsave_batch(batches[0].mask, batches[0].names, cfg.E_path, "mask_")
-        t_wall0 = time.perf_counter()
-        for bi, batch in enumerate(batches):
-            t0 = time.perf_counter()
-            x0 = self.restore_batch(batch, lambda_, zeta, seed=cfg.seed + bi)
+
+        def consume(bi: int, batch: Batch, out, t0: float) -> None:
+            """Fetch, score and save one dispatched batch."""
+            nonlocal n_imgs
             frames = None
-            if isinstance(x0, tuple):  # (restored, progress frames)
-                x0, frames = x0
+            if isinstance(out, tuple):  # (restored, progress frames)
+                out, frames = out
+                frames = frames.cpu().numpy()
+            x0 = out.cpu().numpy()
             dt = time.perf_counter() - t0
             nb = len(batch.names)
             gt = batch.img_H.astype(np.float32) / 255.0
@@ -336,6 +399,23 @@ class Runner:
             if save and cfg.save_L:
                 im.imsave_batch(batch.img_L, batch.names, cfg.E_path,
                                 f"LR_x{cfg.sf}_")
+            if save and cfg.task == "deblur":
+                # each image's PSF (main_ddpir_deblur.py:177: k * 255 * 200,
+                # clipped by the uint8 save)
+                for j in range(nb):
+                    kv = np.clip(batch.kernel[j] * 255.0 * 200.0, 0, 255)
+                    im.imsave(kv.round().astype(np.uint8),
+                              os.path.join(cfg.E_path, f"motion_kernel_{batch.names[j]}"))
+            if save and cfg.save_LEH:
+                im.imsave_batch(leh_montage(batch, x0, cfg.sf), batch.names,
+                                cfg.E_path, "LEH_")
+
+        t_wall0 = time.perf_counter()
+        overlap_dispatch(
+            batches,
+            lambda bi, b: self.restore_batch(b, lambda_, zeta, seed=cfg.seed + bi,
+                                             fetch=False),
+            consume)
         wall = time.perf_counter() - t_wall0
 
         results = {

@@ -244,8 +244,8 @@ def test_prepare_images_bit_for_bit(overrides):
 def test_prepare_images_refuses_unported_tasks():
     """What the port still refuses for deblurring: DIY motion PSFs
     (Pillow-rasterised in the JAX package) in the data path and in the
-    Runner, and save_LEH in the Runner; the first-order prox of
-    sub_1_analytic=false (guidance) now builds."""
+    Runner; the first-order prox of sub_1_analytic=false (guidance) and
+    save_LEH now build."""
     path = os.path.join(ROOT, "configs", "demo64_deblur.yaml")
     cfg = tconfig.load_config(path, dict(use_DIY_kernel=True, blur_mode="motion",
                                          cwd=ROOT))
@@ -253,7 +253,8 @@ def test_prepare_images_refuses_unported_tasks():
         tdata.prepare_images(cfg)
     from diffpir_tpu_torch.runner import Runner
 
-    for over in (dict(use_DIY_kernel=True, blur_mode="motion"), dict(save_LEH=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Runner(tconfig.load_config(path, dict(over, cwd=ROOT)), device="cpu")
-    Runner(tconfig.load_config(path, dict(sub_1_analytic=False, cwd=ROOT)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Runner(tconfig.load_config(path, dict(use_DIY_kernel=True, blur_mode="motion",
+                                              cwd=ROOT)), device="cpu")
+    for over in (dict(sub_1_analytic=False), dict(save_LEH=True)):
+        Runner(tconfig.load_config(path, dict(over, cwd=ROOT)), device="cpu")

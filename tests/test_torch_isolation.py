@@ -4,6 +4,7 @@ run without a card otherwise, and builds its kernels without PyTorch's
 extension builder."""
 
 import glob
+import json
 import os
 import re
 import subprocess
@@ -25,7 +26,9 @@ FORBIDDEN = ("jax", "flax", "yaml", "PIL", "diffpir_tpu")
 
 def test_import_pulls_in_no_forbidden_module():
     code = ("import sys, diffpir_tpu_torch, diffpir_tpu_torch.main, "
-            "diffpir_tpu_torch.runner, diffpir_tpu_torch.kernels.build\n"
+            "diffpir_tpu_torch.runner, diffpir_tpu_torch.kernels.build, "
+            "diffpir_tpu_torch.models.convert, diffpir_tpu_torch.inference, "
+            "diffpir_tpu_torch.serve, diffpir_tpu_torch.server_http\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -55,6 +58,15 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Runner(load_config(os.path.join(ROOT, "configs", "demo32_inpaint.yaml")))
+    from diffpir_tpu_torch import server_http
+    from diffpir_tpu_torch.serve import RestorationService
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RestorationService(load_config(os.path.join(ROOT, "configs",
+                                                     "demo32_inpaint.yaml")))
+    with pytest.raises(RuntimeError, match="--cpu"):
+        server_http.main(["--opt", os.path.join(ROOT, "configs", "demo32_inpaint.yaml"),
+                          "--port", "0"])
 
 
 def test_cli_runs_end_to_end_on_cpu(capsys):
@@ -68,6 +80,21 @@ def test_cli_runs_end_to_end_on_cpu(capsys):
     assert np.isfinite(r["psnr"]) and 10.0 < r["psnr"] < 60.0
     assert 0.0 < r["ssim"] <= 1.0
     assert '"psnr"' in capsys.readouterr().out
+
+
+def test_cli_profile_writes_a_chrome_trace(tmp_path, capsys):
+    """--profile DIR: the run under torch.profiler, its trace in
+    DIR/trace.json (on the CPU: CPU activity only)."""
+    opt = os.path.join(ROOT, "configs", "demo32_inpaint.yaml")
+    out = tmp_path / "profile"
+    tmain.main(["--opt", opt, "--cpu", "--no-sweep", "--set", "iter_num=2",
+                "--set", "save_E=false", "--set", "save_L=false", "--set", f"cwd={ROOT}",
+                "--profile", str(out)])
+    with open(out / "trace.json") as f:
+        trace = json.load(f)
+    names = {ev.get("name", "") for ev in trace["traceEvents"]}
+    assert any("conv" in n for n in names), sorted(names)[:20]
+    capsys.readouterr()
 
 
 def test_runner_saves_pngs_that_pillow_reads(tmp_path):

@@ -18,6 +18,7 @@ from diffpir_tpu import data as jdata
 from diffpir_tpu import runner as jrunner
 from diffpir_tpu.utils import image as jim
 from diffpir_tpu_torch import config as tconfig
+from diffpir_tpu_torch import data as tdata
 from diffpir_tpu_torch import runner as trunner
 from diffpir_tpu_torch.main import main as tmain
 from diffpir_tpu_torch.schedule import make_progress_slots
@@ -136,3 +137,48 @@ def test_evaluate_saves_progress_strips_and_the_mask(tmp_path):
     assert len(strips) == len(masks) == 4
     n_frames = int(make_progress_slots(4).max()) + 1
     assert read_png(str(tmp_path / strips[0])).shape == (32, 32 * n_frames, 3)
+
+
+@pytest.mark.parametrize("opt", ["demo64_sisr.yaml", "demo64_deblur.yaml"])
+def test_save_leh_montage_matches_jax(tmp_path, monkeypatch, opt):
+    """save_LEH writes the JAX package's L|E|H montage (the observation
+    upscaled with itself and the PSF inset, the restoration, the ground
+    truth) for the same batches and outputs: the JAX Runner is handed the
+    port's degraded images (the two resizers differ in the last float bit,
+    which can move a saved pixel by one level) and each Runner's
+    restore_batch is replaced by the same function of the batch."""
+    path = os.path.join(ROOT, "configs", opt)
+    over = dict(model_name="tiny_demo64", cwd=ROOT, save_LEH=True, save_E=False,
+                save_L=False, iter_num=3, batch_size=2)
+    images = sorted(os.path.join(ROOT, "testsets", "demo64", f)
+                    for f in os.listdir(os.path.join(ROOT, "testsets", "demo64")))[:3]
+    np.random.seed(0)
+    items = tdata.prepare_images(tconfig.load_config(path, over), images)
+    monkeypatch.setattr(jrunner, "prepare_images", lambda cfg, paths=None: items)
+    saved = {}
+    for side, config, runner_mod in (("jax", jconfig, jrunner), ("torch", tconfig, trunner)):
+        cfg = config.load_config(path, over)
+        cfg.E_path = str(tmp_path / side)
+        sf = cfg.sf if cfg.task == "sr" else 1
+        runner = (runner_mod.Runner(cfg, use_mesh=False) if side == "jax"
+                  else runner_mod.Runner(cfg, device="cpu"))
+
+        def restore_batch(batch, lambda_=None, zeta=None, seed=0, fetch=True, side=side,
+                          sf=sf):
+            up = np.repeat(np.repeat(batch.img_L, sf, axis=1), sf, axis=2)
+            out = np.clip(0.8 * up + 0.1 + 0.01 * seed, 0.0, 1.0).astype(np.float32)
+            return out if side == "jax" else torch.from_numpy(out)
+
+        monkeypatch.setattr(runner, "restore_batch", restore_batch)
+        runner.evaluate(paths=images, save=True)
+        saved[side] = sorted(f for f in os.listdir(cfg.E_path)
+                             if f.startswith(("LEH_", "motion_kernel_")))
+        for name in saved[side]:  # 64-px outputs, three panels
+            if name.startswith("LEH_"):
+                assert read_png(os.path.join(cfg.E_path, name)).shape == (64, 192, 3)
+    # deblur also writes each PSF, as the JAX package does
+    assert saved["torch"] == saved["jax"]
+    assert len(saved["jax"]) == (6 if "deblur" in opt else 3)
+    for name in saved["jax"]:
+        np.testing.assert_array_equal(read_png(str(tmp_path / "torch" / name)),
+                                      read_png(str(tmp_path / "jax" / name)))

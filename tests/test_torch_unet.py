@@ -102,8 +102,11 @@ def test_flax_to_torch_layouts():
     assert sd["a_0.conv1.weight"][1, 2, 0, 1] == flat["a_0/conv1/kernel"][0, 1, 2, 1]
     assert sd["a_0.emb_proj.weight"].shape == (3, 2)
     assert sd["a_0.norm1.weight"].dtype == torch.float32
+    # the class embedding's table is a weight; an unknown leaf raises
+    emb = tzoo.flax_to_torch({"label_emb/embedding": np.zeros((3, 4), np.float32)})
+    assert emb["label_emb.weight"].shape == (3, 4)
     with pytest.raises(KeyError):
-        tzoo.flax_to_torch({"label_emb/embedding": np.zeros((3, 4), np.float32)})
+        tzoo.flax_to_torch({"a_0/norm1/gamma": np.zeros(4, np.float32)})
 
 
 def test_every_named_config_builds_with_jax_parameter_names():
