@@ -7,19 +7,21 @@
 Phases, each announced by a flushed ``phase <name> start`` line and closed by
 ``phase <name> done <seconds>s``:
 
-  preflight  versions, nvcc, the card; the port imports no JAX, Flax, PyYAML,
-             Pillow or diffpir_tpu; fp32 convolutions and matmuls in full fp32
+  preflight  versions, nvcc, the card; the port imports no JAX, Flax, optax,
+             orbax, PyYAML, Pillow or diffpir_tpu; fp32 convolutions and
+             matmuls in full fp32
   build      nvcc builds the kernels from diffpir_tpu_torch/kernels/csrc;
              ptxas must report no spills
   kernels    every CUDA kernel against its plain PyTorch version on the card,
-             at every shape five paths give it: demo32 (tiny_demo32, heads of
+             at every shape six paths give it: demo32 (tiny_demo32, heads of
              16), demo64 and DEMO256 (below) in fp32 and bf16, and, in bf16
              alone (fp32 copies of their 0.5 GB cases would double the
              phase), the diffusion_ffhq_10m topology (batch 16, 256 px,
              seeded random weights: bench.py's workload) and
              256x256_diffusion_uncond (553M, batch 1, 256 px: attention at
              T = 1024 with 8 heads of 64 and at T = 256 and 64 with 16 heads,
-             GroupNorm up to C = 2048).  Each case is run twice and must repeat bit
+             GroupNorm up to C = 2048), and the train step's DEMO256 at batch
+             16.  Each case is run twice and must repeat bit
              for bit; the fp32 high-mean, low-variance GroupNorm input is held
              to the plain version at 1e-3.  Kernel, plain and library-call
              times in two columns: "device", 20 calls captured in a CUDA
@@ -80,11 +82,32 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              (/stats), images per second and ms per NFE of the coalesced
              batch beside the same batch without HTTP and the CLI's demo256
              inpaint ms per NFE of phase tasks
+  train      the training path (diffpir_tpu_torch.train): the DEMO256 recipe
+             (scripts/train_demo.py --arch hq256 --batch 16 --lr 1e-4,
+             resumed from the 54M prior, bf16 compute with fp32 masters,
+             EMA 0.999, a pool of TRAIN_POOL_SIZE rich synthetic images):
+             its first step's mean mse and loss against the JAX package's
+             fp32 CPU terms of the same weights, batch, t and noise; the
+             gradient through the kernels' autograd.Functions against the
+             plain versions' (every GroupNorm weight and bias, emb_proj and
+             qkv weight, and the whole gradient, at phase grad's bf16 bars)
+             and a detached control that must miss them; 2 + 10 steps per
+             route, kernels and plain in turns (ms per step, img/s, peak
+             memory, launches and Function entries per step, CUDA events
+             around the forward, the update and each Function backward); the
+             EMA through a .flax.npz and zoo.resolve_model, a bit-equal
+             forward.  Then ``python -m diffpir_tpu_torch.train.demo`` from
+             scratch as a subprocess (tiny, 32 px, fp32, 200 steps): the last
+             20 steps' mean loss at most half the first 20's.  Then
+             256x256_diffusion_uncond (553M, seeded random weights, bf16):
+             at batch 2 the loss and gradient with and without use_remat and
+             the peak memory of each, and three timed steps at batch 4 with
+             remat.  Files go to temporary directories removed after
 
 Any failure prints its traceback and exits non-zero with no result line.  On
 success the last lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Nothing is written
-outside ``.kernel_build/``.
+outside ``.kernel_build/`` and temporary directories that are removed.
 
 ``--kernels-only`` stops after phase ``kernels`` and prints the per-forward
 sums as JSON (no result line); ``--package-root DIR`` takes the port's
@@ -265,11 +288,38 @@ TOL = {
 FLAGSHIP_FORWARD_REL_TOL = 5e-2
 FLAGSHIP_IMAGE_MEAN_TOL = 2e-2
 
+# Phase train.  The JAX package's fp32 CPU terms of the DEMO256 recipe's first
+# step (54M prior, batch TRAIN_BATCH from a pool of TRAIN_POOL_SIZE rich
+# synthetic images of --pool-seed TRAIN_POOL_SEED, t and noise from
+# numpy.random.default_rng(0)), and its tiny from-scratch loss ratio (for
+# information: the packages draw differently), printed by
+#   python tests/test_torch_train_demo.py
+TRAIN_POOL_SEED, TRAIN_POOL_SIZE, TRAIN_BATCH = 7, 64, 16
+JAX_DEMO256_STEP_MSE = 0.0014172473456710577
+JAX_DEMO256_STEP_LOSS = 0.0014751895796507597
+JAX_TINY_LOSS_RATIO = 0.085794420308903
+TINY_TRAIN_ARGS = ("--arch", "tiny", "--image-size", "32", "--steps", "200", "--batch",
+                   "64", "--dataset-size", "512", "--save-interval", "10")
+# bf16 on the card against fp32 on the CPU: the mean mse within 2 %, the mean
+# loss (mse + the VLB term, whose decoder NLL at small t is sensitive to the
+# output's rounding) within 5 %; kernels against plain versions on the card:
+# the loss within 1e-2, each GroupNorm, emb_proj and qkv gradient and the
+# whole gradient within phase grad's bf16 bars (GRAD_REL_TOL, GRAD_MIN_COSINE)
+TRAIN_MSE_REL_TOL = 0.02
+TRAIN_LOSS_REL_TOL = 0.05
+TRAIN_KERNEL_LOSS_REL_TOL = 1e-2
+# from scratch, 200 steps: the last 20 steps' mean loss at most half the first 20's
+TINY_LOSS_RATIO_MAX = 0.5
+# 553M with and without per-block recompute: the same arithmetic but cuDNN's
+# weight gradients are not bit-deterministic
+REMAT_LOSS_REL_TOL = 1e-3
+REMAT_GRAD_REL_TOL = 1e-2
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
-FORBIDDEN = ("jax", "flax", "yaml", "PIL", "diffpir_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "PIL", "diffpir_tpu")
 
 
 def log(msg: str) -> None:
@@ -907,6 +957,345 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
     return out
 
 
+def train_grads(trainer, batch, t, noise, detach: bool = False):
+    """(loss, {name: fp32 gradient}) of one step's loss at the trainer's
+    weights, nothing updated; ``detach`` launches the kernels without their
+    autograd.Functions (their outputs then carry no gradient: the control)."""
+    import torch
+
+    from diffpir_tpu_torch.kernels import attention as kat
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+
+    names, params = zip(*trainer.model.named_parameters())
+    launches = (kgn.wants_grad, kat.wants_grad)
+    if detach:
+        kgn.wants_grad = kat.wants_grad = lambda *a: False
+    try:
+        ones = torch.ones((batch.shape[0],), device=batch.device)
+        loss, _ = trainer._loss(batch, t, ones, noise)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        kgn.wants_grad, kat.wants_grad = launches
+    return float(loss.detach()), {n: (torch.zeros_like(p) if g is None else g.float())
+                         for n, p, g in zip(names, params, grads)}
+
+
+def grad_bars(got: dict, ref: dict, groups: dict) -> tuple[dict, list]:
+    """Relative L2 and cosine of each named gradient and of the whole
+    flattened gradient; returns them and the names that miss the bf16 bars."""
+    import torch
+
+    rows = {n: grad_agreement(got[n].double(), ref[n].double())
+            for names in groups.values() for n in names}
+    rows["all"] = grad_agreement(torch.cat([got[n].flatten() for n in ref]),
+                                 torch.cat([ref[n].flatten() for n in ref]))
+    bad = [n for n, (rel, cos) in rows.items()
+           if not (rel <= GRAD_REL_TOL["bfloat16"] and cos >= GRAD_MIN_COSINE["bfloat16"])]
+    return rows, bad
+
+
+def train_phase(dev, root: str) -> dict:
+    """Phase train (see the module docstring).  Returns what the record line
+    and the log report."""
+    import dataclasses
+    import glob
+    import tempfile
+
+    import torch
+
+    from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.kernels import attention as kat
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+    from diffpir_tpu_torch.models import zoo
+    from diffpir_tpu_torch.models.unet import (AttentionBlock, GroupNorm32, ResBlock,
+                                               UNet)
+    from diffpir_tpu_torch.schedule import NoiseSchedule
+    from diffpir_tpu_torch.train.demo import synth_batch
+    from diffpir_tpu_torch.train.loop import TrainConfig, Trainer
+
+    out = {}
+    diff = Diffusion(NoiseSchedule.linear(1e-4, 0.02, 1000), ModelMeanType.EPSILON,
+                     ModelVarType.LEARNED_RANGE)
+    tcfg = TrainConfig(lr=1e-4, ema_rates=(0.999,), compute_dtype="bfloat16")
+    flat = zoo.load_params_npz(os.path.join(REPO, "assets", "demo", "demo256.flax.npz"))
+
+    def demo_trainer(route):
+        model = UNet(zoo.DEMO256_CONFIG, dtype=torch.bfloat16, kernels=route,
+                     param_dtype=torch.float32)
+        model.load_state_dict(zoo.flax_to_torch(flat))
+        trainer = Trainer(model.to(dev), diff, tcfg)
+        return trainer, trainer.init_state(seed=None)
+
+    trainers = {route: demo_trainer(route) for route in ("cuda", "plain")}
+    trainer, state = trainers["cuda"]
+    # the inputs of tests/test_torch_train_demo.py::train_inputs
+    pool_np = synth_batch(np.random.default_rng(TRAIN_POOL_SEED), TRAIN_POOL_SIZE, 256,
+                          rich=True)
+    idx = np.random.default_rng(0).integers(0, TRAIN_POOL_SIZE, (1, TRAIN_BATCH))[0]
+    rng = np.random.default_rng(0)
+    t = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).to(dev)
+    noise = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, 256, 256, 3),
+                                                 dtype=np.float32)).to(dev)
+    pool = torch.from_numpy(pool_np).to(dev)
+    batch = pool[torch.from_numpy(idx).to(dev)]
+
+    # (b) kernels against plain, and the detached control
+    groups = {"groupnorm": [], "emb_proj": [], "qkv": []}
+    for name, mod in trainer.model.named_modules():
+        if isinstance(mod, GroupNorm32):
+            groups["groupnorm"] += [f"{name}.weight", f"{name}.bias"]
+        elif isinstance(mod, ResBlock):
+            groups["emb_proj"] += [f"{name}.emb_proj.weight", f"{name}.emb_proj.bias"]
+        elif isinstance(mod, AttentionBlock):
+            groups["qkv"].append(f"{name}.qkv.weight")
+    LAUNCHES.clear()
+    FN_CALLS.clear()
+    loss_k, g_k = train_grads(trainer, batch, t, noise)
+    grad_launches, grad_fn = dict(LAUNCHES), dict(FN_CALLS)
+    loss_p, g_p = train_grads(trainers["plain"][0], batch, t, noise)
+    loss_d, g_d = train_grads(trainer, batch, t, noise, detach=True)
+    rows, bad = grad_bars(g_k, g_p, groups)
+    rows_d, bad_d = grad_bars(g_d, g_p, groups)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = max((r for n, r in rows.items() if n != "all"), key=lambda r: r[0])
+    log(f"train: demo256 b{TRAIN_BATCH} bf16 gradient, kernels vs plain: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, bound "
+        f"{TRAIN_KERNEL_LOSS_REL_TOL}); whole gradient rel L2 {rows['all'][0]:.3e} cosine "
+        f"{rows['all'][1]:.6f}; worst of {len(rows) - 1} named (GroupNorm "
+        f"{len(groups['groupnorm'])}, emb_proj {len(groups['emb_proj'])}, qkv "
+        f"{len(groups['qkv'])}) rel L2 {worst[0]:.3e} cosine {worst[1]:.6f}; misses "
+        f"{bad}; launches {grad_launches}, Function entries {grad_fn}; detached "
+        f"control: whole rel L2 {rows_d['all'][0]:.3e} cosine {rows_d['all'][1]:.6f}, "
+        f"{len(bad_d)} of {len(rows_d)} miss")
+    if not loss_rel <= TRAIN_KERNEL_LOSS_REL_TOL or bad:
+        raise AssertionError(f"train gradient through the kernels differs from the "
+                             f"plain one: loss rel {loss_rel}, misses {bad}")
+    if not bad_d:
+        raise AssertionError("the detached control passes the gradient bars, so the "
+                             "check could not see a lost gradient")
+    if grad_fn != grad_launches or set(grad_launches) != {"groupnorm_silu",
+                                                          "legacy_qkv_attention"}:
+        raise AssertionError(f"a train forward launched {grad_launches} with Function "
+                             f"entries {grad_fn}: every launch must enter its Function")
+    out["grad"] = dict(loss_rel=loss_rel, all=rows["all"], worst_named=worst,
+                       control_all=rows_d["all"], control_misses=len(bad_d))
+    del g_k, g_p, g_d
+
+    # (a) the first step against the JAX package's fp32 CPU terms
+    with torch.no_grad():
+        terms = diff.training_losses(lambda x, tv: trainer.model(x, tv), batch, t, noise)
+    mse = float(terms["mse"].mean())
+    state, m = trainer.train_step(state, batch, t=t, noise=noise)
+    loss = float(m["loss"])
+    mse_rel = abs(mse - JAX_DEMO256_STEP_MSE) / JAX_DEMO256_STEP_MSE
+    loss_rel = abs(loss - JAX_DEMO256_STEP_LOSS) / JAX_DEMO256_STEP_LOSS
+    log(f"train: demo256 first step mean mse {mse:.6f} (JAX CPU fp32 "
+        f"{JAX_DEMO256_STEP_MSE:.6f}, rel {mse_rel:.3e}), loss {loss:.6f} (JAX "
+        f"{JAX_DEMO256_STEP_LOSS:.6f}, rel {loss_rel:.3e}), grad_norm "
+        f"{float(m['grad_norm']):.4f}")
+    if not (mse_rel <= TRAIN_MSE_REL_TOL and loss_rel <= TRAIN_LOSS_REL_TOL):
+        raise AssertionError(f"first step mse {mse} / loss {loss} not within "
+                             f"{TRAIN_MSE_REL_TOL} / {TRAIN_LOSS_REL_TOL} of JAX's")
+    out["first_step"] = dict(mse=mse, loss=loss, mse_rel=mse_rel, loss_rel=loss_rel)
+
+    # (d) timed steps, each route: events around the forward (the loss), the
+    # update and each Function backward
+    def timed_steps(route, n_warm=2, n_timed=10):
+        tr, st = trainers[route]
+        events = {"fwd": [], "upd": [], "fn_bwd": [], "step": []}
+
+        def bracket(kind, fn):
+            def wrapped(*a, **kw):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                r = fn(*a, **kw)
+                e1.record()
+                events[kind].append((e0, e1))
+                return r
+            return wrapped
+
+        orig = {(cls, "backward"): cls.backward for cls in
+                (kgn.GroupNormSiLUFunction, kat.LegacyQKVAttentionFunction)}
+        tr._loss = bracket("fwd", tr._loss)
+        tr._update = bracket("upd", tr._update)
+        for cls, _ in orig:
+            cls.backward = staticmethod(bracket("fn_bwd", cls.backward))
+        gen = torch.Generator(dev).manual_seed(1)
+        prng = np.random.default_rng(0)
+        step = bracket("step", lambda s, i: tr.train_steps_from_pool(s, pool, i, gen))
+        try:
+            for i in range(n_warm + n_timed):
+                ix = torch.from_numpy(prng.integers(0, TRAIN_POOL_SIZE, (1, TRAIN_BATCH))
+                                      .astype(np.int32)).to(dev)
+                if i == n_warm:
+                    torch.cuda.synchronize()
+                    for v in events.values():
+                        v.clear()
+                    LAUNCHES.clear()
+                    FN_CALLS.clear()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                st, _ = step(st, ix)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n_timed
+        finally:
+            del tr._loss, tr._update
+            for (cls, _), fn in orig.items():
+                cls.backward = fn
+        trainers[route] = (tr, st)
+        ms = {k: sum(a.elapsed_time(b) for a, b in v) / n_timed for k, v in events.items()}
+        return dict(ms_per_step=wall * 1e3, img_per_s=TRAIN_BATCH / wall,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    event_step_ms=ms["step"], forward_ms=ms["fwd"],
+                    update_ms=ms["upd"],
+                    backward_ms=ms["step"] - ms["fwd"] - ms["upd"],
+                    function_backward_ms=ms["fn_bwd"],
+                    launches_per_step={k: v / n_timed for k, v in LAUNCHES.items()},
+                    fn_entries_per_step={k: v / n_timed for k, v in FN_CALLS.items()})
+
+    steps = {}
+    for route in ("cuda", "plain", "plain", "cuda"):
+        r = timed_steps(route)
+        steps.setdefault(route, []).append(r)
+        log(f"train: demo256 b{TRAIN_BATCH} bf16 {route} route, 10 steps: "
+            f"{r['ms_per_step']:.3f} ms/step, {r['img_per_s']:.3f} img/s, peak "
+            f"{r['peak_gb']:.3f} GB; events per step: step {r['event_step_ms']:.3f}, "
+            f"forward {r['forward_ms']:.3f}, backward {r['backward_ms']:.3f} (Function "
+            f"backwards {r['function_backward_ms']:.3f}), update {r['update_ms']:.3f} ms; "
+            f"launches {r['launches_per_step']}, Function entries "
+            f"{r['fn_entries_per_step']} per step")
+    want = {"groupnorm_silu": 65.0, "legacy_qkv_attention": 4.0}
+    for r in steps["cuda"]:
+        if r["launches_per_step"] != want or r["fn_entries_per_step"] != want:
+            raise AssertionError(f"a train step launched {r['launches_per_step']} with "
+                                 f"Function entries {r['fn_entries_per_step']}, expected "
+                                 f"{want} of each")
+    for r in steps["plain"]:
+        if r["launches_per_step"]:
+            raise AssertionError(f"the plain route launched {r['launches_per_step']}")
+    out["steps"] = steps
+    out["launches_per_step"] = steps["cuda"][0]["launches_per_step"]
+    del trainers["plain"]
+
+    # (e) the EMA through a .flax.npz and the port's zoo: a bit-equal forward
+    trainer, state = trainers["cuda"]
+    ema_model = UNet(zoo.DEMO256_CONFIG, dtype=torch.bfloat16,
+                     param_dtype=torch.float32).to(dev).eval()
+    ema_model.load_state_dict(state["ema"][0])
+    x_probe = torch.randn((4, 256, 256, 3), generator=torch.Generator(dev).manual_seed(3),
+                          device=dev)
+    t_probe = torch.tensor([999, 500, 250, 10], dtype=torch.int32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo.save_params_npz(zoo.torch_to_flax(state["ema"][0]),
+                            os.path.join(tmp, "demo256.flax.npz"))
+        loaded = zoo.resolve_model("demo256", tmp, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        equal = torch.equal(ema_model(x_probe, t_probe), loaded.model(x_probe, t_probe))
+    log(f"train: EMA -> .flax.npz -> zoo.resolve_model (provenance {loaded.provenance}): "
+        f"forward bit-equal {equal}")
+    if not equal or loaded.provenance != "cache":
+        raise AssertionError("the EMA round trip through .flax.npz changed the forward")
+    del trainers, trainer, state, ema_model, loaded, pool
+    torch.cuda.empty_cache()
+
+    # tiny from scratch, fp32, as a user runs the demo trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, DIFFPIR_LOG_FORMAT="csv", TMPDIR=tmp,
+                   PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "diffpir_tpu_torch.train.demo", *TINY_TRAIN_ARGS,
+               "--out", os.path.join(tmp, "tiny.flax.npz")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{' '.join(cmd)} failed:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        (csv_path,) = glob.glob(os.path.join(tmp, "diffpir-*", "progress.csv"))
+        losses = read_losses(csv_path)
+        zoo.load_params_npz(os.path.join(tmp, "tiny.flax.npz"))
+    ratio = float(np.mean(losses[-20:]) / np.mean(losses[:20]))
+    log(f"train: tiny from scratch ({' '.join(TINY_TRAIN_ARGS)}, fp32): {len(losses)} "
+        f"steps in {wall:.3f}s, loss first 20 {np.mean(losses[:20]):.5f}, last 20 "
+        f"{np.mean(losses[-20:]):.5f}, ratio {ratio:.4f} (bound {TINY_LOSS_RATIO_MAX}; "
+        f"JAX CPU {JAX_TINY_LOSS_RATIO:.4f}, other draws)")
+    if len(losses) != 200 or not ratio <= TINY_LOSS_RATIO_MAX:
+        raise AssertionError(f"tiny from scratch: {len(losses)} steps, ratio {ratio}")
+    out["tiny"] = dict(ratio=ratio, seconds=wall)
+
+    # 553M, bf16, 256 px, seeded random weights: remat against none, then b4 steps
+    cfg553 = zoo.MODEL_ZOO_CONFIGS["256x256_diffusion_uncond"]
+    model = zoo.init_random_(UNet(cfg553, dtype=torch.bfloat16, param_dtype=torch.float32),
+                             0).to(dev)
+    big = Trainer(model, diff, TrainConfig(lr=1e-4, ema_rates=(0.9999,),
+                                           compute_dtype="bfloat16"))
+    brng = np.random.default_rng(0)
+    x2 = torch.from_numpy(brng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)).to(dev)
+    t2 = torch.from_numpy(brng.integers(0, 1000, 2)).to(dev)
+    n2 = torch.from_numpy(brng.standard_normal((2, 256, 256, 3), dtype=np.float32)).to(dev)
+    res = {}
+    for remat in (False, True):
+        model.cfg = dataclasses.replace(cfg553, use_remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        LAUNCHES.clear()
+        loss_r, g = train_grads(big, x2, t2, n2)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        res[remat] = (loss_r, torch.cat([v.flatten() for v in g.values()]), peak,
+                      dict(LAUNCHES))
+        del g
+    rel_loss = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    rel_g, cos_g = grad_agreement(res[True][1], res[False][1])
+    log(f"train: 553M b2 bf16 remat vs none: loss {res[True][0]:.6f} vs "
+        f"{res[False][0]:.6f} (rel {rel_loss:.3e}, bound {REMAT_LOSS_REL_TOL}), gradient "
+        f"rel L2 {rel_g:.3e} cosine {cos_g:.6f} (bound {REMAT_GRAD_REL_TOL}); peak above "
+        f"the weights {res[True][2]:.3f} GB with remat, {res[False][2]:.3f} GB without; "
+        f"launches {res[True][3]} with remat, {res[False][3]} without")
+    if not (rel_loss <= REMAT_LOSS_REL_TOL and rel_g <= REMAT_GRAD_REL_TOL
+            and res[True][2] < res[False][2]):
+        raise AssertionError("553M remat and no remat disagree, or remat saves no memory")
+    out["remat"] = dict(loss_rel=rel_loss, grad_rel=rel_g, peak_gb_remat=res[True][2],
+                        peak_gb_none=res[False][2])
+    del res
+
+    state = big.init_state(seed=None)
+    x4 = torch.from_numpy(brng.uniform(-1, 1, (4, 256, 256, 3)).astype(np.float32)).to(dev)
+    gen = torch.Generator(dev).manual_seed(2)
+    state, _ = big.train_step(state, x4, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = big.train_step(state, x4, gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3
+    loss = float(m["loss"])
+    log(f"train: 553M b4 bf16 remat, 3 steps: {wall * 1e3:.3f} ms/step, "
+        f"{4 / wall:.3f} img/s, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+        f"loss {loss:.5f}, launches per step "
+        f"{ {k: v / 3 for k, v in LAUNCHES.items()} }")
+    if not np.isfinite(loss):
+        raise AssertionError(f"553M train step loss {loss}")
+    out["uncond553m_b4"] = dict(ms_per_step=wall * 1e3, img_per_s=4 / wall,
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del big, model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def read_losses(csv_path: str) -> list:
+    """The per-step ``loss`` column of a kvlogger CSV, in step order."""
+    import csv
+
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    return [float(r["loss"]) for r in sorted(rows, key=lambda r: int(r["step"]))]
+
+
 # ---------------------------------------------------------------------------
 
 def run(argv: list[str]) -> int:
@@ -935,6 +1324,8 @@ def run(argv: list[str]) -> int:
     with phase("preflight"):
         import diffpir_tpu_torch  # noqa: F401
         import diffpir_tpu_torch.main  # noqa: F401
+        import diffpir_tpu_torch.train.datasets  # noqa: F401
+        import diffpir_tpu_torch.train.demo  # noqa: F401
         from diffpir_tpu_torch.kernels import LAUNCHES, build
 
         bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
@@ -997,6 +1388,10 @@ def run(argv: list[str]) -> int:
                                      kernels="plain"), 0).to(dev).eval()
         calls256 = record_kernel_calls(
             flag, torch.randn((4, 256, 256, 3), generator=gen, device=dev), t_probe)
+        # the train step's forward (phase train: the DEMO256 recipe at b16)
+        calls256b16 = record_kernel_calls(
+            flag, torch.randn((16, 256, 256, 3), generator=gen, device=dev),
+            t_probe.repeat(4))
         del flag
         ffhq = zoo.init_random_(UNet(zoo.MODEL_ZOO_CONFIGS["diffusion_ffhq_10m"],
                                      dtype=torch.bfloat16, kernels="plain"),
@@ -1013,14 +1408,15 @@ def run(argv: list[str]) -> int:
         del uncond
         torch.cuda.empty_cache()
         paths = (("demo32", calls32), ("demo64", calls64), ("demo256", calls256),
-                 ("ffhq b16", callsffhq), ("uncond553m b1", calls553))
+                 ("ffhq b16", callsffhq), ("uncond553m b1", calls553),
+                 ("demo256 b16", calls256b16))
         for name, calls in paths:
             log(f"{name}: {sum(c[0] == 'gn' for c in calls)} GroupNorm and "
                 f"{sum(c[0] == 'attn' for c in calls)} attention calls per forward")
 
         gn_keys, attn_keys = set(), set()
         for calls, dtypes in ((calls32 + calls64 + calls256, ("float32", "bfloat16")),
-                              (callsffhq + calls553, ("bfloat16",))):
+                              (callsffhq + calls553 + calls256b16, ("bfloat16",))):
             for c in calls:
                 for dt in dtypes:
                     if c[0] == "gn":
@@ -1374,6 +1770,9 @@ def run(argv: list[str]) -> int:
                                 per_fwd)
         serve_launches = serve_out["launches"]
 
+    with phase("train"):
+        train_out = train_phase(dev, root)
+
     record = {"kernels": []}
     for name, kind, source, replaces in (
             ("groupnorm_silu", "gn", "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
@@ -1387,7 +1786,9 @@ def run(argv: list[str]) -> int:
             "launches_per_path": {"main demo64_inpaint": main_launches.get(name, 0),
                                   **{f"tasks {t}": n.get(name, 0)
                                      for t, n in task_launches.items()},
-                                  "serve demo256_inpaint": serve_launches.get(name, 0)},
+                                  "serve demo256_inpaint": serve_launches.get(name, 0),
+                                  "train demo256 step":
+                                      train_out["launches_per_step"].get(name, 0)},
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
@@ -1401,8 +1802,10 @@ def run(argv: list[str]) -> int:
             "demo32_per_forward": per_fwd[("demo32", kind)],
             "flagship_per_forward": per_fwd[("demo256", kind)],
             "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)],
-            "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)]})
+            "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)],
+            "train_demo256_b16_per_forward": per_fwd[("demo256 b16", kind)]})
     log("serve: " + json.dumps(serve_out))
+    log("train: " + json.dumps(train_out))
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

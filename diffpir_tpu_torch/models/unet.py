@@ -15,6 +15,12 @@ Numerics carried over:
   ch^-1/4, softmax in fp32 (``kernels.attention``).
 * Sinusoidal timestep embedding with cos first.
 * The output head runs in the compute dtype.
+* Convolution and dense weights are cast to the activation's type at each
+  call, as flax's ``param_dtype=float32`` does, so fp32 master weights train
+  a bf16 model; weights stored in the compute dtype make that cast a no-op.
+* ``UNetConfig.use_remat`` recomputes each ResBlock and AttentionBlock in the
+  backward pass (``torch.utils.checkpoint``, as the JAX package's
+  ``nn.remat``); parameter names do not change.
 
 Activations are (B, H, W, C) tensors, contiguous in that order, which is what
 the GroupNorm and attention kernels take.  A convolution hands cuDNN the
@@ -35,14 +41,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from diffpir_tpu_torch.kernels.attention import (legacy_qkv_attention,
                                                  legacy_qkv_attention_plain)
 from diffpir_tpu_torch.kernels.groupnorm import (groupnorm_silu,
                                                  groupnorm_silu_plain)
 
-__all__ = ["UNetConfig", "UNet", "GroupNorm32", "ResBlock", "AttentionBlock",
-           "timestep_embedding", "KERNEL_ROUTES"]
+__all__ = ["UNetConfig", "UNet", "GroupNorm32", "Conv", "Dense", "ResBlock",
+           "AttentionBlock", "timestep_embedding", "KERNEL_ROUTES"]
 
 KERNEL_ROUTES = ("cuda", "plain")
 
@@ -101,9 +108,16 @@ class Conv(nn.Module):
         self.padding = kernel // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                     self.bias.to(x.dtype), self.stride, self.padding)
         return y.permute(0, 2, 3, 1).contiguous()
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` whose weights are cast to the input's type at each call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +163,7 @@ class ResBlock(nn.Module):
         self.use_scale_shift_norm = use_scale_shift_norm
         self.norm1 = GroupNorm32(cin, fuse_silu=True, kernels=kernels)
         self.conv1 = Conv(cin, cout)
-        self.emb_proj = nn.Linear(emb_dim, 2 * cout if use_scale_shift_norm else cout)
+        self.emb_proj = Dense(emb_dim, 2 * cout if use_scale_shift_norm else cout)
         self.norm2 = GroupNorm32(cout, fuse_silu=True, kernels=kernels)
         self.conv2 = Conv(cout, cout)
         self.skip = Conv(cin, cout, 1) if cin != cout else None
@@ -181,8 +195,8 @@ class AttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.kernels = _check_route(kernels)
         self.norm = GroupNorm32(channels, kernels=kernels)
-        self.qkv = nn.Linear(channels, 3 * channels)
-        self.proj = nn.Linear(channels, channels)
+        self.qkv = Dense(channels, 3 * channels)
+        self.proj = Dense(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
@@ -212,6 +226,9 @@ class UNetConfig:
     use_scale_shift_norm: bool = True
     resblock_updown: bool = True
     conv_resample: bool = True
+    # recompute each ResBlock and AttentionBlock in the backward pass
+    # (reference ``use_checkpoint``, ``guided_diffusion/unet.py:154-162``)
+    use_remat: bool = False
 
     def heads_for(self, ch: int) -> int:
         if self.num_head_channels == -1:
@@ -229,24 +246,26 @@ class UNet(nn.Module):
             y: (B,) integer class labels, given exactly when the config has
             ``num_classes``) -> (B,H,W,out_channels) in the compute dtype.
 
-    Convolution and dense weights are stored in the compute dtype (the JAX
-    package casts its fp32 parameters to it at each call); GroupNorm
-    parameters and the class embedding's table stay fp32.  With
+    Convolution and dense weights are stored in ``param_dtype`` (by default
+    the compute dtype, as inference wants) and cast to the compute dtype at
+    each call; ``param_dtype=torch.float32`` gives the fp32 master weights
+    of training, as the JAX package's ``param_dtype``.  GroupNorm parameters
+    and the class embedding's table are always fp32.  With
     ``resblock_updown=False`` a level changes resolution by a stride-2 conv
     (down) and nearest upsampling followed by a conv (up), or without the
     convs when ``conv_resample=False``.
     """
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
-                 kernels: str = "cuda"):
+                 kernels: str = "cuda", param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.kernels = _check_route(kernels)
         mc = cfg.model_channels
         time_dim = mc * 4
-        self.time_embed_0 = nn.Linear(mc, time_dim)
-        self.time_embed_2 = nn.Linear(time_dim, time_dim)
+        self.time_embed_0 = Dense(mc, time_dim)
+        self.time_embed_2 = Dense(time_dim, time_dim)
         if cfg.num_classes is not None:
             self.label_emb = nn.Embedding(cfg.num_classes, time_dim)
 
@@ -318,11 +337,15 @@ class UNet(nn.Module):
         self.out_conv = Conv(ch, cfg.out_channels)
         for m in self.modules():
             if isinstance(m, (Conv, nn.Linear)):
-                m.to(dtype)
+                m.to(dtype if param_dtype is None else param_dtype)
 
     def _layer(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         layer = getattr(self, name)
-        return layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+        args = (h, emb) if isinstance(layer, ResBlock) else (h,)
+        if (self.cfg.use_remat and torch.is_grad_enabled()
+                and isinstance(layer, (ResBlock, AttentionBlock))):
+            return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:

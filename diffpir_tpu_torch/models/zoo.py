@@ -11,9 +11,11 @@ package's order (``diffpir_tpu/models/zoo.py:134-214``):
 4. seeded random weights (``init_random_``), with a warning ("random").
 
 The flat npz files are carried into a PyTorch state dict in memory by
-``flax_to_torch``.  Unlike the JAX package, the port writes no converted
-cache anywhere.  Still queued (ROADMAP.md queue A): the classifier variants
-of ``diffpir_tpu/models/variants.py`` and the summaries of ``summary.py``.
+``flax_to_torch``; ``torch_to_flax`` and ``save_params_npz`` write the same
+layout back (the trainer's EMA export).  Unlike the JAX package, the port
+writes no converted cache anywhere.  ``init_train_`` is the JAX package's
+training initialisation, matched in distribution.  Still queued (ROADMAP.md
+queue A): the classifier variants of ``diffpir_tpu/models/variants.py``.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from diffpir_tpu_torch.models.unet import UNet, UNetConfig
 
 __all__ = ["MODEL_ZOO_CONFIGS", "TINY_TEST_CONFIG", "DEMO_HQ_CONFIG",
            "DEMO256_CONFIG", "TINY_GRAY_CONFIG", "model_config_for",
-           "load_params_npz", "flax_to_torch", "init_random_", "resolve_model",
-           "ResolvedModel"]
+           "load_params_npz", "save_params_npz", "flax_to_torch", "torch_to_flax",
+           "init_random_", "init_train_", "resolve_model", "ResolvedModel"]
 
 log = logging.getLogger(__name__)
 
@@ -127,6 +129,67 @@ def flax_to_torch(flat_params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
         name = "bias" if leaf == "bias" else "weight"
         sd[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(v))
     return sd
+
+
+def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``flax_to_torch``: a state dict of the port's ``UNet``
+    -> flat ``{"a/b/leaf": fp32 array}`` parameters in the JAX package's
+    layout (conv weight OIHW -> kernel HWIO, dense weight -> kernel (in,
+    out), GroupNorm weight -> scale, ``label_emb`` weight -> embedding)."""
+    flat = {}
+    for key, v in state_dict.items():
+        *path, name = key.split(".")
+        v = np.array(v.detach().float().cpu(), copy=True)
+        if name == "bias":
+            leaf = "bias"
+        elif path[-1] == "label_emb":
+            leaf = "embedding"
+        elif v.ndim == 4:
+            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+        elif v.ndim == 2:
+            leaf, v = "kernel", v.T
+        elif v.ndim == 1:
+            leaf = "scale"
+        else:
+            raise KeyError(f"unexpected parameter {key!r} of shape {v.shape}")
+        flat["/".join(path + [leaf])] = np.ascontiguousarray(v)
+    return flat
+
+
+def save_params_npz(flat_params: Dict[str, np.ndarray], path: str) -> None:
+    """Write flat parameters as the JAX package's ``save_params_npz`` does
+    (one array per ``"a/b/leaf"`` key), readable by both zoos."""
+    np.savez(path, **flat_params)
+
+
+# layers the JAX package zero-initialises for training
+# (``diffpir_tpu/models/unet.py:158, 217, 264, 439``)
+_ZERO_INIT = ("conv2", "proj", "out_conv")
+
+
+def init_train_(model: UNet, seed: int) -> UNet:
+    """The JAX package's training initialisation, matched in distribution:
+    conv and dense weights lecun-normal (a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in), zero for each ResBlock's
+    ``conv2``, each attention ``proj`` and ``out_conv``; biases 0; GroupNorm
+    scale 1; the class embedding N(0, 1/features) as flax's ``Embed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            *path, leaf = name.split(".")
+            if leaf == "bias" or path[-1] in _ZERO_INIT:
+                p.zero_()
+            elif path[-1] == "label_emb":
+                p.copy_(torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[1]))
+            elif p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = int(np.prod(p.shape[1:]))
+                std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+                w = torch.empty(p.shape)
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                p.copy_(w * std)
+    return model
 
 
 def init_random_(model: UNet, seed: int) -> UNet:

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX, Flax, PyYAML, Pillow nor
+"""The port stands alone: it imports neither JAX, Flax, optax, orbax, PyYAML,
+Pillow nor
 the JAX package, runs its CLI end to end on the CPU when asked, refuses to
 run without a card otherwise, and builds its kernels without PyTorch's
 extension builder."""
@@ -21,14 +22,17 @@ from diffpir_tpu_torch.kernels import build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "diffpir_tpu_torch")
-FORBIDDEN = ("jax", "flax", "yaml", "PIL", "diffpir_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "PIL", "diffpir_tpu")
 
 
 def test_import_pulls_in_no_forbidden_module():
     code = ("import sys, diffpir_tpu_torch, diffpir_tpu_torch.main, "
             "diffpir_tpu_torch.runner, diffpir_tpu_torch.kernels.build, "
             "diffpir_tpu_torch.models.convert, diffpir_tpu_torch.inference, "
-            "diffpir_tpu_torch.serve, diffpir_tpu_torch.server_http\n"
+            "diffpir_tpu_torch.serve, diffpir_tpu_torch.server_http, "
+            "diffpir_tpu_torch.train, diffpir_tpu_torch.train.datasets, "
+            "diffpir_tpu_torch.train.demo, diffpir_tpu_torch.models.summary, "
+            "diffpir_tpu_torch.utils.kvlogger\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -67,6 +71,10 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="--cpu"):
         server_http.main(["--opt", os.path.join(ROOT, "configs", "demo32_inpaint.yaml"),
                           "--port", "0"])
+    from diffpir_tpu_torch.train import demo
+
+    with pytest.raises(RuntimeError, match="--cpu"):
+        demo.main(["--arch", "tiny", "--steps", "1", "--out", os.devnull])
 
 
 def test_cli_runs_end_to_end_on_cpu(capsys):
