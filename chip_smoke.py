@@ -21,8 +21,12 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              256x256_diffusion_uncond (553M, batch 1, 256 px: attention at
              T = 1024 with 8 heads of 64 and at T = 256 and 64 with 16 heads,
              GroupNorm up to C = 2048), and the train step's DEMO256 at batch
-             16.  Each case is run twice and must repeat bit
-             for bit; the fp32 high-mean, low-variance GroupNorm input is held
+             16, and guided-diffusion's 256x256 classifier (batch 8, bf16,
+             its out_norm fp32; the spatial_v2 head's (8, 1, 1, 2048)
+             GroupNorm in both types); every head width of the generic
+             attention kernel (GENERIC_WIDTHS at T = 64, 256 and 1024, and
+             ODD_WIDTH_CASES) in fp32 and bf16.  Each case is run twice and
+             must repeat bit for bit; the fp32 high-mean, low-variance GroupNorm input is held
              to the plain version at 1e-3.  Kernel, plain and library-call
              times in two columns: "device", 20 calls captured in a CUDA
              graph and replayed between CUDA events (no host dispatch), and
@@ -33,7 +37,7 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              images, 50 NFE): PSNR against the JAX package's, launch counts,
              and the same restore with the plain versions
   tasks      the CLI on each path of TASK_RUNS: demo64 deblur (Levin09
-             k0), demo64 SR x2 in the blur, classical and cubic modes, demo32
+             k0, and a DIY motion PSF per image), demo64 SR x2 in the blur, classical and cubic modes, demo32
              inpaint (heads of 16), and the 54M trained prior's demo256
              deblur, SR x4 and inpaint at 100 NFE in bf16; then every other
              trajectory mode: demo64 inpaint repaint, vanilla, iter_num_U=2,
@@ -103,6 +107,25 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              at batch 2 the loss and gradient with and without use_remat and
              the peak memory of each, and three timed steps at batch 4 with
              remat.  Files go to temporary directories removed after
+  variants   guided-diffusion's 256x256 classifier (CLASSIFIER_256, seeded
+             random weights built as an EncoderUNetModel state dict and read
+             through models/convert.py, bf16, batch 8): logits through the
+             kernels against the plain versions (launches per forward),
+             d log p(y|x_t)/dx through the kernels' Functions against plain
+             autograd with a detached control that must fail the bars, a .pt
+             round trip that must give the same logits bit for bit,
+             GUIDED_STEPS classifier-guided p_sample steps over the demo256
+             prior (finite, and not the unguided steps of the same noise),
+             and a SuperResUNet forward at the DEMO256 widths (6 input
+             channels, 64 px low_res) against the plain versions.  Prints ms
+             per forward and per guided step and peak memory
+  metrics    configs/demo256_inpaint.yaml through the CLI with calc_LPIPS
+             and calc_FID on seeded random VGG16+lin and InceptionV3 weights
+             (written under .kernel_build/, removed after): PSNR and
+             launches equal to phase tasks' run, LPIPS and FID finite and
+             equal to lpips_from_weights and fid_from_weights applied on the
+             card to a restore_batch of the same batch; ms per image of LPIPS
+             and of the pool3 features
 
 Any failure prints its traceback and exits non-zero with no result line.  On
 success the last lines are the kernels' JSON record, the card's name and
@@ -207,6 +230,11 @@ JAX_DEMO256_REPAINT_U2_PSNR = 45.66042670748715
 #   python main_ddpir.py --opt configs/demo256_inpaint.yaml --cpu --no-sweep \
 #       --set iter_num=20 --set model_output_type=pred_x_prev
 JAX_DEMO256_XPREV_PSNR = 10.474139087734825
+# The DIY motion PSF (one per image, default_rng(idx * 10), intensity 0.5)
+# at the config's kernel size, 15:
+#   python main_ddpir.py --opt configs/demo64_deblur.yaml --cpu --no-sweep \
+#       --set use_DIY_kernel=true --set blur_mode=motion
+JAX_DEMO64_DEBLUR_MOTION_PSNR = 43.550579627417484
 NOISY = {"noise_level_img": 12.75}
 # Where the trajectory's noise moves one seed's PSNR by tenths of a dB
 # (demo64 repaint, iter_num_U=2 and the first-order proxes; on seed 42 the
@@ -222,6 +250,8 @@ VANILLA_SEEDS = 32
 # from the config's seed on)
 TASK_RUNS = (
     ("demo64_deblur", "configs/demo64_deblur.yaml", {}, JAX_DEMO64_DEBLUR_PSNR, 1),
+    ("demo64_deblur_motion", "configs/demo64_deblur.yaml",
+     {"use_DIY_kernel": True, "blur_mode": "motion"}, JAX_DEMO64_DEBLUR_MOTION_PSNR, 1),
     ("demo64_sisr_blur", "configs/demo64_sisr.yaml", {}, JAX_DEMO64_SISR_BLUR_PSNR, 1),
     ("demo64_sisr_classical", "configs/demo64_sisr.yaml", {"sr_mode": "classical"},
      JAX_DEMO64_SISR_CLASSICAL_PSNR, 1),
@@ -282,6 +312,34 @@ TOL = {
     ("legacy_qkv_attention", "float32"): dict(atol=2e-5, rtol=1e-4),
     ("legacy_qkv_attention", "bfloat16"): dict(atol=3e-2, rtol=3e-2),
 }
+# Head widths of the generic attention kernel held in phase kernels at
+# (8, T, 4 heads) for T = 64, 256 and 1024, and (B, T, heads, ch) cases with
+# odd widths at a T that is no multiple of a tile
+GENERIC_WIDTHS = (8, 24, 48, 80, 96, 128, 192, 256)
+ODD_WIDTH_CASES = ((2, 100, 3, 1), (2, 100, 3, 7), (2, 65, 2, 255))
+# Phase variants: guided-diffusion's 256x256 classifier (the README's
+# classifier flags and script_util.py create_classifier: image_size 256,
+# classifier_width 128, classifier_depth 2, attention at 32, 16 and 8 px,
+# num_head_channels 64, channel_mult (1, 1, 2, 2, 4, 4), resblock_updown and
+# use_scale_shift_norm on, pool "attention", 1000 classes), bf16, batch 8;
+# per forward 46 GroupNorm calls (2 x 19 ResBlocks, 7 attention norms,
+# out_norm) and 7 attention calls; CLASSIFIER_SCALE as the README's
+# classifier-guided sampling of the unconditional 256x256 model
+CLASSIFIER_256 = dict(image_size=256, in_channels=3, model_channels=128,
+                      out_channels=1000, num_res_blocks=2,
+                      attention_resolutions=(8, 16, 32),
+                      channel_mult=(1, 1, 2, 2, 4, 4), num_heads=4,
+                      num_head_channels=64, dropout=0.0,
+                      use_scale_shift_norm=True, resblock_updown=True)
+CLASSIFIER_BATCH = 8
+CLASSIFIER_CALLS = {"groupnorm_silu": 46, "legacy_qkv_attention": 7}
+CLASSIFIER_SCALE = 10.0
+GUIDED_STEPS = 20
+# Phase metrics: the CLI's LPIPS and FID against the functions applied on
+# the card to a restore of the same batch (the same kernels and seed: equal
+# but for cuDNN's choice of algorithms between the two runs)
+METRIC_LPIPS_RTOL = 1e-4
+METRIC_FID_RTOL = 1e-3
 # Flagship phase, random weights, bf16: one UNet forward through the kernels
 # against the plain versions, max |diff| over max |plain output|; and the
 # 20-NFE restored images on [0, 1], mean |diff|.
@@ -1287,6 +1345,330 @@ def train_phase(dev, root: str) -> dict:
     return out
 
 
+def classifier_logp_grad(model, x, t, y):
+    """d sum_i log p(y_i | x_i, t_i) / dx through ``model`` (fp32 result)."""
+    import torch
+
+    with torch.enable_grad():
+        xv = x.detach().float().requires_grad_()
+        logits = model(xv, t).float()
+        logp = torch.log_softmax(logits, dim=-1)[torch.arange(x.shape[0], device=x.device), y]
+        if not logp.requires_grad:  # every path to x cut (the detached control)
+            return torch.zeros_like(xv)
+        (g,) = torch.autograd.grad(logp.sum(), xv)
+    return g
+
+
+def variants_phase(dev, gen) -> dict:
+    """The guided-diffusion 256x256 classifier (CLASSIFIER_256, seeded random
+    weights as an ``EncoderUNetModel`` state dict read through
+    ``models/convert.py``, bf16, batch 8) through both kernels: logits and
+    d log p(y|x_t)/dx against the plain versions (a detached control must
+    fail the gradient bars), a ``.pt`` round trip, GUIDED_STEPS
+    classifier-guided ``p_sample`` steps over the demo256 prior against the
+    unguided steps with the same noise, and a ``SuperResUNet`` forward at the
+    DEMO256 widths (6 input channels, a 64 px ``low_res``)."""
+    import dataclasses
+    import io
+
+    import torch
+
+    from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.kernels import attention as kat
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+    from diffpir_tpu_torch.models import convert, zoo
+    from diffpir_tpu_torch.models.unet import UNetConfig
+    from diffpir_tpu_torch.models.variants import EncoderUNet, SuperResUNet
+    from diffpir_tpu_torch.schedule import NoiseSchedule
+
+    out = {}
+    cfg = UNetConfig(**CLASSIFIER_256)
+    b = CLASSIFIER_BATCH
+    guided_sd = convert.to_guided_state_dict(
+        zoo.init_random_(EncoderUNet(cfg, pool="attention"), 0).state_dict())
+    sd = convert.convert_state_dict(guided_sd)
+    models = {}
+    for route in ("cuda", "plain"):
+        m = EncoderUNet(cfg, pool="attention", dtype=torch.bfloat16, kernels=route)
+        m.load_state_dict(sd)
+        models[route] = m.to(dev).eval().requires_grad_(False)
+    out["params"] = sum(p.numel() for p in models["cuda"].parameters())
+    x = torch.randn((b, 256, 256, 3), generator=gen, device=dev)
+    t = torch.randint(0, 1000, (b,), generator=gen, device=dev)
+    y = torch.randint(0, cfg.out_channels, (b,), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    # 1. logits, kernels against plain
+    LAUNCHES.clear()
+    with torch.no_grad():
+        lk = models["cuda"](x, t).float()
+    torch.cuda.synchronize()
+    out["launches_per_forward"] = dict(LAUNCHES)
+    LAUNCHES.clear()
+    with torch.no_grad():
+        lp = models["plain"](x, t).float()
+    if sum(LAUNCHES.values()):
+        raise AssertionError(f"the plain classifier launched kernels: {dict(LAUNCHES)}")
+    if out["launches_per_forward"] != CLASSIFIER_CALLS:
+        raise AssertionError(f"classifier launches {out['launches_per_forward']}, "
+                             f"expected {CLASSIFIER_CALLS}")
+    if not (bool(torch.isfinite(lk).all()) and lk.shape == (b, cfg.out_channels)):
+        raise AssertionError(f"classifier logits {tuple(lk.shape)} are not finite")
+    out["logits_rel"] = float((lk - lp).abs().max() / lp.abs().max())
+    out["argmax_agree"] = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    if not out["logits_rel"] <= FLAGSHIP_FORWARD_REL_TOL:
+        raise AssertionError(f"classifier logits differ by {out['logits_rel']} (relative)")
+    with torch.no_grad():
+        out["forward_ms"] = timed_ms(lambda: models["cuda"](x, t), iters=10)
+        out["plain_forward_ms"] = timed_ms(lambda: models["plain"](x, t), iters=10)
+
+    # 2. d log p(y|x_t)/dx through the Functions against plain autograd
+    FN_CALLS.clear()
+    gk = classifier_logp_grad(models["cuda"], x, t, y).double()
+    out["function_entries"] = dict(FN_CALLS)
+    if out["function_entries"] != CLASSIFIER_CALLS:
+        raise AssertionError(f"classifier gradient entered the Functions "
+                             f"{out['function_entries']}, expected {CLASSIFIER_CALLS}")
+    gp = classifier_logp_grad(models["plain"], x, t, y).double()
+    saved = (kgn.wants_grad, kat.wants_grad)
+    kgn.wants_grad = kat.wants_grad = lambda *a: False
+    try:
+        gd = classifier_logp_grad(models["cuda"], x, t, y).double()
+    finally:
+        kgn.wants_grad, kat.wants_grad = saved
+    rel, cos = grad_agreement(gk, gp)
+    rel_d, cos_d = grad_agreement(gd, gp)
+    tol, min_cos = GRAD_REL_TOL["bfloat16"], GRAD_MIN_COSINE["bfloat16"]
+    out.update(grad_rel_l2=rel, grad_cosine=cos, detached_rel_l2=rel_d,
+               detached_cosine=cos_d)
+    if not (rel <= tol and cos >= min_cos):
+        raise AssertionError(f"classifier gradient through the kernels differs from "
+                             f"the plain one (rel {rel}, cosine {cos})")
+    if rel_d <= tol and cos_d >= min_cos:
+        raise AssertionError("the detached control passes the gradient bounds")
+    out["forward_backward_ms"] = timed_ms(
+        lambda: classifier_logp_grad(models["cuda"], x, t, y), iters=5)
+
+    # 3. a .pt round trip of the guided-diffusion state dict: bit-equal logits
+    buf = io.BytesIO()
+    torch.save(convert.to_guided_state_dict(models["cuda"].state_dict()), buf)
+    buf.seek(0)
+    back = EncoderUNet(cfg, pool="attention", dtype=torch.bfloat16)
+    back.load_state_dict(convert.convert_state_dict(torch.load(buf, weights_only=True)))
+    back = back.to(dev).eval()
+    with torch.no_grad():
+        out["pt_round_trip_equal"] = bool(torch.equal(back(x, t).float(), lk))
+    del back
+    if not out["pt_round_trip_equal"]:
+        raise AssertionError("classifier logits changed through the .pt round trip")
+
+    # 4. classifier-guided ancestral steps over the demo256 prior
+    resolved = zoo.resolve_model("demo256", "model_zoo", dtype=torch.bfloat16, device=dev)
+    if resolved.provenance != "demo":
+        raise AssertionError(f"demo256 weights are {resolved.provenance!r}")
+    prior = resolved.model
+    diffusion = Diffusion(NoiseSchedule.linear(1e-4, 0.02, 1000), ModelMeanType.EPSILON,
+                          ModelVarType.LEARNED_RANGE)
+    x_t = torch.randn((b, 256, 256, 3), generator=gen, device=dev)
+    noises = [torch.randn(x_t.shape, generator=gen, device=dev) for _ in range(GUIDED_STEPS)]
+
+    def prior_fn(v, tt):
+        return prior(v.to(torch.bfloat16), tt)
+
+    def cond_fn(v, tt):
+        return CLASSIFIER_SCALE * classifier_logp_grad(models["cuda"], v, tt, y)
+
+    def steps(guided: bool):
+        v = x_t
+        for i in range(GUIDED_STEPS):
+            tt = torch.full((b,), 999 - i, dtype=torch.int32, device=dev)
+            with torch.no_grad():
+                v = diffusion.p_sample(prior_fn, v, tt, noises[i],
+                                       cond_fn=cond_fn if guided else None)["sample"]
+        return v
+
+    LAUNCHES.clear()
+    FN_CALLS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xg = steps(True)
+    torch.cuda.synchronize()
+    out["guided_step_ms"] = (time.perf_counter() - t0) * 1e3 / GUIDED_STEPS
+    out["guided_launches"] = dict(LAUNCHES)
+    out["guided_function_entries"] = dict(FN_CALLS)
+    want = {k: (CLASSIFIER_CALLS[k] + n) * GUIDED_STEPS
+            for k, n in (("groupnorm_silu", 65), ("legacy_qkv_attention", 4))}
+    want_fn = {k: n * GUIDED_STEPS for k, n in CLASSIFIER_CALLS.items()}
+    if out["guided_launches"] != want or out["guided_function_entries"] != want_fn:
+        raise AssertionError(f"guided steps: launches {out['guided_launches']} (expected "
+                             f"{want}), Function entries {out['guided_function_entries']} "
+                             f"(expected {want_fn})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xu = steps(False)
+    torch.cuda.synchronize()
+    out["unguided_step_ms"] = (time.perf_counter() - t0) * 1e3 / GUIDED_STEPS
+    out["guided_minus_unguided_max"] = float((xg - xu).abs().max())
+    if not (bool(torch.isfinite(xg).all()) and out["guided_minus_unguided_max"] > 0.0):
+        raise AssertionError("guided steps are not finite or equal the unguided ones")
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del prior, resolved, models
+    torch.cuda.empty_cache()
+
+    # 5. SuperResUNet at the DEMO256 widths, kernels against plain
+    srcfg = dataclasses.replace(zoo.DEMO256_CONFIG, in_channels=6)
+    srsd = zoo.init_random_(SuperResUNet(srcfg), 0).state_dict()
+    srs = {}
+    for route in ("cuda", "plain"):
+        m = SuperResUNet(srcfg, dtype=torch.bfloat16, kernels=route)
+        m.load_state_dict(srsd)
+        srs[route] = m.to(dev).eval()
+    xs = torch.randn((4, 256, 256, 3), generator=gen, device=dev)
+    low = torch.rand((4, 64, 64, 3), generator=gen, device=dev) * 2 - 1
+    LAUNCHES.clear()
+    with torch.no_grad():
+        sk = srs["cuda"](xs, t[:4], low).float()
+        out["superres_launches"] = dict(LAUNCHES)
+        sp = srs["plain"](xs, t[:4], low).float()
+    out["superres_rel"] = float((sk - sp).abs().max() / sp.abs().max())
+    if out["superres_launches"] != {"groupnorm_silu": 65, "legacy_qkv_attention": 4}:
+        raise AssertionError(f"SuperResUNet launches {out['superres_launches']}")
+    if not (sk.shape == (4, 256, 256, 6) and bool(torch.isfinite(sk).all())
+            and out["superres_rel"] <= FLAGSHIP_FORWARD_REL_TOL):
+        raise AssertionError(f"SuperResUNet forward differs by {out['superres_rel']}")
+    with torch.no_grad():
+        out["superres_forward_ms"] = timed_ms(lambda: srs["cuda"](xs, t[:4], low), iters=10)
+    del srs
+    torch.cuda.empty_cache()
+    return out
+
+
+def random_lpips_weights(rng) -> dict:
+    """Seeded random VGG16 ``features.*`` and LPIPS ``lin{k}`` weights in the
+    torchvision and ``lpips`` layouts."""
+    chans = {0: (3, 64), 2: (64, 64), 5: (64, 128), 7: (128, 128), 10: (128, 256),
+             12: (256, 256), 14: (256, 256), 17: (256, 512), 19: (512, 512),
+             21: (512, 512), 24: (512, 512), 26: (512, 512), 28: (512, 512)}
+    flat = {}
+    for i, (cin, cout) in chans.items():
+        flat[f"features.{i}.weight"] = (rng.standard_normal((cout, cin, 3, 3))
+                                        * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        flat[f"features.{i}.bias"] = (rng.standard_normal(cout) * 0.01).astype(np.float32)
+    for k, c in enumerate((64, 128, 256, 512, 512)):
+        flat[f"lin{k}.model.1.weight"] = np.abs(
+            rng.standard_normal((1, c, 1, 1)) * 0.05).astype(np.float32)
+    return flat
+
+
+def random_inception_weights(rng) -> dict:
+    """Seeded random InceptionV3 weights in torchvision's layout (conv + BN
+    statistics), scaled so that 94 ReLU convs neither die nor explode."""
+    from diffpir_tpu_torch.inception import expected_conv_shapes
+
+    flat = {}
+    for prefix, (cout, cin, kh, kw) in expected_conv_shapes().items():
+        flat[f"{prefix}.conv.weight"] = (rng.standard_normal((cout, cin, kh, kw))
+                                         * (1.5 / np.sqrt(cin * kh * kw))).astype(np.float32)
+        flat[f"{prefix}.bn.weight"] = rng.uniform(0.7, 1.3, cout).astype(np.float32)
+        flat[f"{prefix}.bn.bias"] = (rng.standard_normal(cout) * 0.05).astype(np.float32)
+        flat[f"{prefix}.bn.running_mean"] = (rng.standard_normal(cout)
+                                             * 0.05).astype(np.float32)
+        flat[f"{prefix}.bn.running_var"] = rng.uniform(0.7, 1.3, cout).astype(np.float32)
+    return flat
+
+
+def metrics_phase(dev, cli_main, task_psnr: dict, task_launches: dict) -> dict:
+    """LPIPS and FID through the CLI on configs/demo256_inpaint.yaml (seeded
+    random VGG16+lin and InceptionV3 weights written under .kernel_build/ and
+    removed after): the PSNR must equal phase tasks' run of the same config,
+    the launches too, and LPIPS and FID must be finite and equal
+    ``lpips_from_weights`` and ``fid_from_weights`` on the card applied to a
+    ``restore_batch`` of the same batch."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.data import make_batches, prepare_images
+    from diffpir_tpu_torch.inception import fid_from_weights, inception_pool3_from_weights
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.kernels.build import BUILD_DIR
+    from diffpir_tpu_torch.metrics import lpips_from_weights
+    from diffpir_tpu_torch.runner import Runner
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="metrics_", dir=BUILD_DIR)
+    out = {}
+    try:
+        rng = np.random.default_rng(0)
+        lpips_path = os.path.join(tmp, "lpips_vgg.npz")
+        fid_path = os.path.join(tmp, "pt_inception.npz")
+        np.savez(lpips_path, **random_lpips_weights(rng))
+        np.savez(fid_path, **random_inception_weights(rng))
+        opt = "configs/demo256_inpaint.yaml"
+        over = {"save_E": False, "save_L": False, "calc_LPIPS": True,
+                "lpips_weights": lpips_path, "calc_FID": True, "fid_weights": fid_path}
+        argv = ["--opt", opt, "--no-sweep"]
+        for k, v in over.items():
+            argv += ["--set", f"{k}={v if isinstance(v, str) else json.dumps(v)}"]
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = cli_main(argv)[0]
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        out["launches"] = dict(LAUNCHES)
+        out.update(psnr=res["psnr"], lpips=res["lpips"], fid=res["fid"])
+        if out["launches"] != task_launches["demo256_inpaint"]:
+            raise AssertionError(f"launches {out['launches']}, phase tasks "
+                                 f"{task_launches['demo256_inpaint']}")
+        out["psnr_minus_tasks"] = res["psnr"] - task_psnr["demo256_inpaint"]
+        if abs(out["psnr_minus_tasks"]) > 1e-6:
+            raise AssertionError(f"PSNR {res['psnr']} with the metrics, "
+                                 f"{task_psnr['demo256_inpaint']} without")
+        if not (np.isfinite(res["lpips"]) and np.isfinite(res["fid"])):
+            raise AssertionError(f"LPIPS {res['lpips']} or FID {res['fid']} not finite")
+
+        cfg = load_config(opt, over)
+        np.random.seed(cfg.seed)
+        batch = make_batches(prepare_images(cfg), cfg.batch_size)[0]
+        x0 = Runner(cfg, device=dev).restore_batch(batch, seed=cfg.seed)
+        gt = batch.img_H.astype(np.float32) / 255.0
+        lpips_fn = lpips_from_weights(lpips_path, dev)
+        out["lpips_direct"] = lpips_fn(x0 * 2 - 1, gt * 2 - 1)
+        out["fid_direct"] = fid_from_weights(fid_path, dev)(x0, gt)
+        pool3 = inception_pool3_from_weights(fid_path, device=dev)
+        out["lpips_ms_per_image"] = timed_host_ms(
+            lambda: lpips_fn(x0 * 2 - 1, gt * 2 - 1)) / len(x0)
+        out["pool3_ms_per_image"] = timed_host_ms(lambda: pool3(x0)) / len(x0)
+        if not (abs(out["lpips_direct"] - res["lpips"])
+                <= METRIC_LPIPS_RTOL * abs(out["lpips_direct"])
+                and abs(out["fid_direct"] - res["fid"])
+                <= METRIC_FID_RTOL * abs(out["fid_direct"])):
+            raise AssertionError(f"CLI LPIPS {res['lpips']} FID {res['fid']}; the "
+                                 f"functions on the same batch {out['lpips_direct']}, "
+                                 f"{out['fid_direct']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def timed_host_ms(fn, iters: int = 5) -> float:
+    """Mean wall time of ``fn`` in ms (host round trips included: each call
+    takes numpy in and gives a number or numpy back)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def read_losses(csv_path: str) -> list:
     """The per-step ``loss`` column of a kvlogger CSV, in step order."""
     import csv
@@ -1362,7 +1744,8 @@ def run(argv: list[str]) -> int:
     from diffpir_tpu_torch.data import make_batches, prepare_images
     from diffpir_tpu_torch.main import main as cli_main
     from diffpir_tpu_torch.models import zoo
-    from diffpir_tpu_torch.models.unet import UNet
+    from diffpir_tpu_torch.models.unet import UNet, UNetConfig
+    from diffpir_tpu_torch.models.variants import EncoderUNet
     from diffpir_tpu_torch.runner import Runner
     from diffpir_tpu_torch.schedule import (NoiseSchedule, build_plan,
                                             make_progress_slots)
@@ -1406,10 +1789,17 @@ def run(argv: list[str]) -> int:
         calls553 = record_kernel_calls(
             uncond, torch.randn((1, 256, 256, 3), generator=gen, device=dev), t_probe[:1])
         del uncond
+        clf = zoo.init_random_(EncoderUNet(UNetConfig(**CLASSIFIER_256), pool="attention",
+                                           dtype=torch.bfloat16, kernels="plain"),
+                               0).to(dev).eval()
+        callsclf = record_kernel_calls(
+            clf, torch.randn((CLASSIFIER_BATCH, 256, 256, 3), generator=gen, device=dev),
+            t_probe.repeat(CLASSIFIER_BATCH // 4))
+        del clf
         torch.cuda.empty_cache()
         paths = (("demo32", calls32), ("demo64", calls64), ("demo256", calls256),
                  ("ffhq b16", callsffhq), ("uncond553m b1", calls553),
-                 ("demo256 b16", calls256b16))
+                 ("demo256 b16", calls256b16), ("classifier b8", callsclf))
         for name, calls in paths:
             log(f"{name}: {sum(c[0] == 'gn' for c in calls)} GroupNorm and "
                 f"{sum(c[0] == 'attn' for c in calls)} attention calls per forward")
@@ -1425,6 +1815,18 @@ def run(argv: list[str]) -> int:
                         attn_keys.add((c[1], c[2], c[3], c[4], dt))
         for dt in ("float32", "bfloat16"):
             attn_keys.add((4, 1024, 8, 64, dt))  # 256x256_diffusion_uncond at ds8
+            # the generic kernel: every other head width, as a config with
+            # num_heads set and num_head_channels -1 gives them
+            for ch in GENERIC_WIDTHS:
+                for t in (64, 256, 1024):
+                    attn_keys.add((8, t, 4, ch, dt))
+            for key in ODD_WIDTH_CASES:
+                attn_keys.add(key + (dt,))
+            # the spatial_v2 classifier head's GroupNorm: one pixel, 2048 channels
+            gn_keys.add(((CLASSIFIER_BATCH, 1, 1, 2048), dt, False, False))
+        # the classifier in its own types: bf16, and fp32 at out_norm
+        for c in callsclf:
+            (gn_keys if c[0] == "gn" else attn_keys).add(c[1:])
 
         def columns(r):
             return " ".join(f"{k}={r[k]:.4f}" for k in (
@@ -1546,7 +1948,7 @@ def run(argv: list[str]) -> int:
     with phase("tasks"):
         per_forward_calls = {"tiny_demo32": calls32, "demo64_hq": calls64,
                              "demo256": calls256}
-        task_launches, task_ms_nfe = {}, {}
+        task_launches, task_ms_nfe, task_psnr = {}, {}, {}
         for name, opt, over, jax_psnr, n_seeds in TASK_RUNS:
             over = {"save_E": False, "save_L": False, **over}
             argv = ["--opt", opt, "--no-sweep"]
@@ -1571,6 +1973,7 @@ def run(argv: list[str]) -> int:
             wall = (time.perf_counter() - t0) / n_seeds
             task_launches[name] = dict(LAUNCHES)
             res = res_seeds[0]
+            task_psnr[name] = res["psnr"]
             psnr = float(np.mean([r["psnr"] for r in res_seeds]))
             if task_launches[name] != want:
                 raise AssertionError(f"{name}: launches {task_launches[name]}, "
@@ -1773,6 +2176,14 @@ def run(argv: list[str]) -> int:
     with phase("train"):
         train_out = train_phase(dev, root)
 
+    with phase("variants"):
+        variants_out = variants_phase(dev, gen)
+        log("variants: " + json.dumps(variants_out))
+
+    with phase("metrics"):
+        metrics_out = metrics_phase(dev, cli_main, task_psnr, task_launches)
+        log("metrics: " + json.dumps(metrics_out))
+
     record = {"kernels": []}
     for name, kind, source, replaces in (
             ("groupnorm_silu", "gn", "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
@@ -1788,7 +2199,15 @@ def run(argv: list[str]) -> int:
                                      for t, n in task_launches.items()},
                                   "serve demo256_inpaint": serve_launches.get(name, 0),
                                   "train demo256 step":
-                                      train_out["launches_per_step"].get(name, 0)},
+                                      train_out["launches_per_step"].get(name, 0),
+                                  "variants classifier forward":
+                                      variants_out["launches_per_forward"].get(name, 0),
+                                  "variants guided steps":
+                                      variants_out["guided_launches"].get(name, 0),
+                                  "variants superres forward":
+                                      variants_out["superres_launches"].get(name, 0),
+                                  "metrics demo256_inpaint":
+                                      metrics_out["launches"].get(name, 0)},
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
@@ -1803,7 +2222,8 @@ def run(argv: list[str]) -> int:
             "flagship_per_forward": per_fwd[("demo256", kind)],
             "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)],
             "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)],
-            "train_demo256_b16_per_forward": per_fwd[("demo256 b16", kind)]})
+            "train_demo256_b16_per_forward": per_fwd[("demo256 b16", kind)],
+            "classifier_b8_per_forward": per_fwd[("classifier b8", kind)]})
     log("serve: " + json.dumps(serve_out))
     log("train: " + json.dumps(train_out))
     log(json.dumps(record))

@@ -5,7 +5,8 @@ deblurring, super-resolution and inpainting, in plain numpy and scipy; the SR
 resizes run through ``ops.resize.resize2d`` on the CPU in fp32.  The numpy
 RNG calls happen in the same order as in the JAX package (the caller seeds
 ``np.random`` with ``cfg.seed`` first; a DIY blur kernel reseeds it with
-``idx * 10``; each mask draws from ``default_rng(cfg.seed + idx)``; the AWGN
+``idx * 10``, and a DIY motion PSF draws from ``default_rng(idx * 10)``;
+each mask draws from ``default_rng(cfg.seed + idx)``; the AWGN
 from ``np.random.normal``), so the degraded inputs match it bit for bit where
 the path is numpy or scipy.
 
@@ -26,7 +27,7 @@ import torch
 
 from diffpir_tpu_torch.config import TaskConfig
 from diffpir_tpu_torch.ops.degrade import (classical_degradation, gaussian_psf,
-                                           make_mask, shift_pixel)
+                                           make_mask, motion_psf, shift_pixel)
 from diffpir_tpu_torch.ops.resize import resize2d
 from diffpir_tpu_torch.utils import image as im
 
@@ -65,14 +66,13 @@ def _kernel_for(cfg: TaskConfig, idx: int) -> np.ndarray:
         return load_kernel_asset("bicubic_x234", f"x{k_index}").astype(np.float64)
     if cfg.task == "deblur":
         if cfg.use_DIY_kernel:
-            if cfg.blur_mode != "Gaussian":
-                raise NotImplementedError(
-                    f"use_DIY_kernel with blur_mode={cfg.blur_mode!r} is not ported "
-                    "yet (ROADMAP.md queue A: motion PSF synthesis)")
             # per-image reproducible kernel stream (main_ddpir.py:59)
             np.random.seed(idx * 10)
-            std_i = cfg.kernel_std * np.abs(np.random.rand() * 2 + 1)
-            return gaussian_psf(cfg.kernel_size, std_i).astype(np.float32)
+            if cfg.blur_mode == "Gaussian":
+                std_i = cfg.kernel_std * np.abs(np.random.rand() * 2 + 1)
+                return gaussian_psf(cfg.kernel_size, std_i).astype(np.float32)
+            rng = np.random.default_rng(idx * 10)
+            return motion_psf(cfg.kernel_size, cfg.kernel_std, rng).astype(np.float32)
         return load_kernel_asset("levin09", "k0").astype(np.float32)
     return np.ones((1, 1), np.float32)
 

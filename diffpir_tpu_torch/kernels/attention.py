@@ -3,7 +3,9 @@
 Port of the TPU kernel ``diffpir_tpu/pallas/attention.py::legacy_qkv_attention``
 (defined at ``:47``, ``pl.pallas_call`` at ``:62``, body ``_attn_kernel`` at
 ``:32-43``) to the CUDA kernel
-in ``csrc/attention.cu`` (bf16 on tensor cores, fp32 on CUDA cores).  qkv is
+in ``csrc/attention.cu`` (bf16 on tensor cores, fp32 on CUDA cores; tuned
+kernels for head widths 16, 32 and 64, and kernels taking every other width
+from 1 to 256).  qkv is
 (B, T, 3*C) with channel layout [head][q|k|v][ch]; q and k are both scaled by
 ch^-1/4; logits and softmax are fp32; the output is (B, T, C).
 
@@ -30,7 +32,10 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
            "LegacyQKVAttentionFunction", "attention_rows_per_block", "check_inputs"]
 
-KERNEL_HEAD_CHANNELS = (16, 32, 64)
+MAX_HEAD_CHANNELS = 256
+# head widths the kernel takes: tuned paths run 16, 32 and 64, the other
+# widths' kernels the rest up to MAX_HEAD_CHANNELS
+KERNEL_HEAD_CHANNELS = range(1, MAX_HEAD_CHANNELS + 1)
 # query tiles the kernel takes, largest first: bf16 warps own 16 rows (tiles
 # of 16, 32) or 32 rows (64, 128); fp32 warps own 8 rows, at most 256 threads
 ROWS_PER_BLOCK = {True: (128, 64, 32, 16), False: (64, 32, 16)}
@@ -79,8 +84,8 @@ def check_inputs(qkv: torch.Tensor, num_heads: int) -> int:
     b, _, w = qkv.shape
     ch = w // (3 * num_heads)
     if ch not in KERNEL_HEAD_CHANNELS:
-        raise ValueError(f"legacy_qkv_attention: head width {ch} not in "
-                         f"{KERNEL_HEAD_CHANNELS}")
+        raise ValueError(f"legacy_qkv_attention: head width {ch} is outside the "
+                         f"kernel's 1..{MAX_HEAD_CHANNELS}")
     if b * num_heads > MAX_PAIRS:
         raise ValueError(f"legacy_qkv_attention: batch*heads exceeds {MAX_PAIRS}")
     check_cuda_tensor("qkv", qkv, qkv.device)
@@ -98,8 +103,8 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     lib = load_library()
     out = torch.empty((b, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
     is_bf16 = qkv.dtype == torch.bfloat16
-    rows = attention_rows_per_block(b, t, num_heads, is_bf16,
-                                    _num_sms(qkv.device.index))
+    # the tuned widths' query tile (the other widths' kernels ignore it)
+    rows = attention_rows_per_block(b, t, num_heads, is_bf16, _num_sms(qkv.device.index))
     rc = lib.diffpir_legacy_qkv_attention(
         qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch, rows, int(is_bf16),
         current_stream_handle(qkv.device))

@@ -41,6 +41,17 @@
 // rows, and keeps its own running (max, sum) per row; the key-split lanes are
 // merged at the end.  K/V tiles of 32 rows are staged with a cp.async double
 // buffer, padded so that the eight lanes' 16-byte reads hit distinct banks.
+//
+// Design, every other head width (1 .. 256): the TPU kernel takes any
+// ch = C / heads, and a config with num_heads set and num_head_channels -1
+// gives widths such as 96, 128 or 192.  In bf16 (attn_bf16_any) ch is
+// padded to CHP, the next multiple of 16: Q of 64 rows and K/V tiles of 32
+// keys are copied element by element (ch need not make 16-byte rows) into
+// shared memory with the padding channels zero, and the tiles go through
+// the same mma.sync path as attn_bf16 with 16 rows per warp.  In fp32
+// (attn_f32_any) a simple kernel on CUDA cores takes ch at run time: 16
+// rows per block, 8 lanes per row, Q and a 32-key K/V tile in shared memory
+// (up to 82 KB at ch 256); every product reads shared memory, so it is slow.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -514,6 +525,328 @@ attn_f32(const float* __restrict__ qkv, float* __restrict__ out, int T_, int H,
   }
 }
 
+// ---------------------------------------------------------------------------
+// any other head width, fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kGenRows = 16;      // query rows per block
+constexpr int kGenKeys = 32;      // keys per tile
+constexpr int kGenLanes = 8;      // lanes per query row
+constexpr int kGenThreads = kGenRows * kGenLanes;
+constexpr int kGenMaxCh = 256;
+
+// Padded row of the shared tiles, in floats: odd, so that lanes reading one
+// column of different rows hit different banks.
+__host__ __device__ __forceinline__ int generic_ld(int ch) { return ch | 1; }
+
+__host__ __forceinline__ size_t generic_smem(int ch) {
+  return ((size_t)(kGenRows + 2 * kGenKeys) * generic_ld(ch) +
+          kGenRows * (kGenKeys + 1)) * sizeof(float);
+}
+
+// Head width ch at run time.  A block takes 16 query rows of one (batch,
+// head) pair; the 8 lanes of a row split the 32 keys of a tile for
+// S = Q.K^T (keys lane, lane + 8, ...) and the channels for O += P.V
+// (channels lane, lane + 8, ...; NU of them at most, NU * 8 >= ch).  Q and
+// the K/V tile sit in shared memory; logits, the online softmax and the
+// accumulator are fp32.
+template <int NU>
+__global__ void __launch_bounds__(kGenThreads)
+attn_f32_any(const float* __restrict__ qkv, float* __restrict__ out, int T_, int H, int ch,
+             float scale_log2) {
+  extern __shared__ float gsm[];
+  const int ld = generic_ld(ch);
+  float* Qs = gsm;                       // [kGenRows][ld]
+  float* Ks = Qs + kGenRows * ld;        // [kGenKeys][ld]
+  float* Vs = Ks + kGenKeys * ld;        // [kGenKeys][ld]
+  float* Ps = Vs + kGenKeys * ld;        // [kGenRows][kGenKeys + 1]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int W3 = 3 * H * ch;
+  const float* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
+  const int q0 = blockIdx.x * kGenRows;
+  const int r = threadIdx.x / kGenLanes, sl = threadIdx.x % kGenLanes;
+
+  for (int i = threadIdx.x; i < kGenRows * ch; i += kGenThreads) {
+    const int rr = i / ch, c = i % ch, row = q0 + rr;
+    Qs[rr * ld + c] = row < T_ ? base[(size_t)row * W3 + c] : 0.f;
+  }
+
+  float acc[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) acc[u] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  const float* qr = Qs + r * ld;
+  float* pr = Ps + r * (kGenKeys + 1);
+  const int ntiles = (T_ + kGenKeys - 1) / kGenKeys;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kGenKeys;
+    __syncthreads();  // the last tile is consumed (and Q is stored)
+    for (int i = threadIdx.x; i < kGenKeys * ch; i += kGenThreads) {
+      const int j = i / ch, c = i % ch, key = k0 + j;
+      const float* src = base + (size_t)(key < T_ ? key : 0) * W3 + c;
+      Ks[j * ld + c] = key < T_ ? src[ch] : 0.f;
+      Vs[j * ld + c] = key < T_ ? src[2 * ch] : 0.f;
+    }
+    __syncthreads();
+
+    float s[kGenKeys / kGenLanes];
+#pragma unroll
+    for (int i = 0; i < kGenKeys / kGenLanes; ++i) s[i] = 0.f;
+    for (int c = 0; c < ch; ++c) {
+      const float qv = qr[c];
+#pragma unroll
+      for (int i = 0; i < kGenKeys / kGenLanes; ++i)
+        s[i] = fmaf(qv, Ks[(sl + kGenLanes * i) * ld + c], s[i]);
+    }
+    float mx = m;
+#pragma unroll
+    for (int i = 0; i < kGenKeys / kGenLanes; ++i) {
+      s[i] = k0 + sl + kGenLanes * i < T_ ? s[i] * scale_log2 : -INFINITY;
+      mx = fmaxf(mx, s[i]);
+    }
+#pragma unroll
+    for (int off = 1; off < kGenLanes; off *= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // every tile holds a key below T, so mx is finite; exp2f(-inf) = 0
+    const float corr = exp2f(m - mx);
+    m = mx;
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kGenKeys / kGenLanes; ++i) {
+      const float p = exp2f(s[i] - mx);
+      psum += p;
+      pr[sl + kGenLanes * i] = p;
+    }
+#pragma unroll
+    for (int off = 1; off < kGenLanes; off *= 2)
+      psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    l = l * corr + psum;
+    __syncwarp();  // the row's weights come from lanes of this warp
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[u] *= corr;
+    for (int j = 0; j < kGenKeys; ++j) {
+      const float p = pr[j];
+      const float* vr = Vs + j * ld + sl;
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+        if (sl + kGenLanes * u < ch) acc[u] = fmaf(p, vr[kGenLanes * u], acc[u]);
+    }
+  }
+
+  const int row = q0 + r;
+  if (row < T_) {
+    const float inv = 1.f / l;
+    float* o = out + ((size_t)b * T_ + row) * (H * ch) + (size_t)h * ch + sl;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      if (sl + kGenLanes * u < ch) o[kGenLanes * u] = acc[u] * inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// any other head width, bf16: tensor cores on zero-padded tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kPadRows = 64;   // query rows per block: 4 warps of 16
+constexpr int kPadKeys = 32;   // keys per tile
+
+__host__ __forceinline__ size_t padded_smem(int chp) {
+  return (size_t)(kPadRows + 2 * kPadKeys) * (chp + 8) * sizeof(__nv_bfloat16);
+}
+
+// Head width ch padded to CHP, a multiple of 16: Q of the block's 64 rows
+// and each tile of 32 keys' K and V are copied into shared memory with
+// channels ch .. CHP-1 (and keys past T) set to 0, which leaves every dot
+// product as it is.  Then as attn_bf16 with 16 rows per warp: Q fragments by
+// ldmatrix, S = Q.K^T and O += P.V by mma.sync.m16n8k16, the online softmax
+// on the fp32 fragments, the unnormalised weights rounded to bf16.
+template <int CHP>
+__global__ void __launch_bounds__(128)
+attn_bf16_any(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+              int T_, int H, int ch, float scale_log2) {
+  constexpr int LD = CHP + 8;       // padded row: 16 bytes more
+  constexpr int KS = CHP / 16;      // k-steps of Q.K^T
+  constexpr int NT = kPadKeys / 8;  // n-tiles of S
+  constexpr int NO = CHP / 8;       // n-tiles of O
+  extern __shared__ __align__(16) __nv_bfloat16 psm[];
+  __nv_bfloat16* Qs = psm;                  // [kPadRows][LD]
+  __nv_bfloat16* Ks = Qs + kPadRows * LD;   // [kPadKeys][LD]
+  __nv_bfloat16* Vs = Ks + kPadKeys * LD;   // [kPadKeys][LD]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int W3 = 3 * H * ch;
+  const __nv_bfloat16* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4, lr = lane % 8, lm = lane / 8;
+  const int q0 = blockIdx.x * kPadRows;
+  // the copies move raw 16-bit words (a select between bf16 structs went
+  // through local memory)
+  const uint16_t* src16 = reinterpret_cast<const uint16_t*>(base);
+  uint16_t* Qs16 = reinterpret_cast<uint16_t*>(Qs);
+  uint16_t* Ks16 = reinterpret_cast<uint16_t*>(Ks);
+  uint16_t* Vs16 = reinterpret_cast<uint16_t*>(Vs);
+
+  for (int i = threadIdx.x; i < kPadRows * CHP; i += blockDim.x) {
+    const int r = i / CHP, c = i % CHP, row = q0 + r;
+    Qs16[r * LD + c] = row < T_ && c < ch ? src16[(size_t)row * W3 + c] : uint16_t(0);
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  // lane supplies row lane % 16, channels 8 * (lane / 16) .. of an A fragment
+  const __nv_bfloat16* qa_row = Qs + (warp * 16 + lane % 16) * LD + 8 * (lane / 16);
+  const int ntiles = (T_ + kPadKeys - 1) / kPadKeys;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kPadKeys;
+    __syncthreads();  // the last tile is consumed (and Q is stored)
+    for (int i = threadIdx.x; i < kPadKeys * CHP; i += blockDim.x) {
+      const int r = i / CHP, c = i % CHP, key = k0 + r;
+      const bool ok = key < T_ && c < ch;
+      const uint16_t* src = src16 + (size_t)(ok ? key : 0) * W3 + (ok ? c : 0);
+      Ks16[r * LD + c] = ok ? src[ch] : uint16_t(0);
+      Vs16[r * LD + c] = ok ? src[2 * ch] : uint16_t(0);
+    }
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < KS; ++kk) {  // a loop: unrolled, ptxas spilled some CHP
+      uint32_t qa[4];
+      ldmatrix_x4(qa, qa_row + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Ks + (8 * (j + (lm >> 1)) + lr) * LD + 16 * kk + 8 * (lm & 1));
+        mma_bf16(s[j], qa, kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    if (k0 + kPadKeys > T_) {  // the ragged last tile: keys at or past T drop out
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t4 + (e & 1) >= T_) s[j][e] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // every tile holds a key below T, so mx0 and mx1 are finite
+    const float c0f = ex2((m0 - mx0) * scale_log2), c1f = ex2((m1 - mx1) * scale_log2);
+    const float sub0 = mx0 * scale_log2, sub1 = mx1 * scale_log2;
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0f;
+    l1 *= c1f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= c0f;
+      o[n][1] *= c0f;
+      o[n][2] *= c1f;
+      o[n][3] *= c1f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kPadKeys / 16; ++kk) {
+      float p[2][4];
+#pragma unroll
+      for (int hlf = 0; hlf < 2; ++hlf) {
+        const int j = 2 * kk + hlf;
+        p[hlf][0] = ex2(fmaf(s[j][0], scale_log2, -sub0));
+        p[hlf][1] = ex2(fmaf(s[j][1], scale_log2, -sub0));
+        p[hlf][2] = ex2(fmaf(s[j][2], scale_log2, -sub1));
+        p[hlf][3] = ex2(fmaf(s[j][3], scale_log2, -sub1));
+        l0 += p[hlf][0] + p[hlf][1];
+        l1 += p[hlf][2] + p[hlf][3];
+      }
+      uint32_t pa[4];
+      pa[0] = pack_bf16(p[0][0], p[0][1]);
+      pa[1] = pack_bf16(p[0][2], p[0][3]);
+      pa[2] = pack_bf16(p[1][0], p[1][1]);
+      pa[3] = pack_bf16(p[1][2], p[1][3]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Vs + (16 * kk + 8 * (lm & 1) + lr) * LD + 8 * (n + (lm >> 1)));
+        mma_bf16(o[n], pa, vb[0], vb[1]);
+        mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  const int ra = q0 + warp * 16 + g, C = H * ch;
+  __nv_bfloat16* oa = out + ((size_t)b * T_ + ra) * C + (size_t)h * ch + 2 * t4;
+  __nv_bfloat16* orb = oa + (size_t)8 * C;
+  const bool ok_a = ra < T_, ok_b = ra + 8 < T_;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * n + e;
+      if (c + 2 * t4 < ch) {
+        if (ok_a) oa[c] = __float2bfloat16_rn(o[n][e] * i0);
+        if (ok_b) orb[c] = __float2bfloat16_rn(o[n][2 + e] * i1);
+      }
+    }
+  }
+}
+
+template <typename Kernel, typename T>
+cudaError_t launch_any(Kernel kernel, int rows, int threads, size_t smem, const void* qkv,
+                       void* out, int B, int T_, int H, int ch, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((T_ + rows - 1) / rows, B * H);
+  kernel<<<grid, threads, smem, st>>>(static_cast<const T*>(qkv), static_cast<T*>(out), T_,
+                                      H, ch, kLog2e / sqrtf((float)ch));
+  return cudaGetLastError();
+}
+
+template <int CHP>
+cudaError_t launch_bf16_any(const void* qkv, void* out, int B, int T_, int H, int ch,
+                            cudaStream_t st) {
+  if (ch > CHP) return launch_bf16_any<(CHP < kGenMaxCh ? CHP + 16 : CHP)>(
+      qkv, out, B, T_, H, ch, st);
+  return launch_any<decltype(&attn_bf16_any<CHP>), __nv_bfloat16>(
+      attn_bf16_any<CHP>, kPadRows, 128, padded_smem(CHP), qkv, out, B, T_, H, ch, st);
+}
+
+cudaError_t launch_f32_any(const void* qkv, void* out, int B, int T_, int H, int ch,
+                           cudaStream_t st) {
+  const size_t smem = generic_smem(ch);
+#define DIFFPIR_F32_ANY(NU)                                                              \
+  return launch_any<decltype(&attn_f32_any<NU>), float>(attn_f32_any<NU>, kGenRows,      \
+                                                        kGenThreads, smem, qkv, out, B, \
+                                                        T_, H, ch, st)
+  if (ch <= 32) DIFFPIR_F32_ANY(4);
+  if (ch <= 64) DIFFPIR_F32_ANY(8);
+  if (ch <= 128) DIFFPIR_F32_ANY(16);
+  DIFFPIR_F32_ANY(32);
+#undef DIFFPIR_F32_ANY
+}
+
 template <int CH>
 cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
                    bool bf16, cudaStream_t st) {
@@ -546,8 +879,10 @@ cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
 
 }  // namespace
 
-// Returns a cudaError_t.  ch must be 16, 32 or 64, rows (query rows per block)
-// 16, 32, 64 or (bf16 only) 128, and qkv and out 16-byte aligned.
+// Returns a cudaError_t.  ch is 1 .. 256: 16, 32 and 64 run the tuned kernels
+// with rows (query rows per block) 16, 32, 64 or (bf16 only) 128; every other
+// width runs attn_bf16_any (64 rows per block) or attn_f32_any (16), whatever
+// rows says.  qkv and out must be 16-byte aligned.
 extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
                                             int T, int heads, int ch, int rows,
                                             int is_bf16, void* stream) {
@@ -559,5 +894,7 @@ extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
   if (ch == 16) return (int)launch<16>(qkv, out, B, T, heads, rows, is_bf16, st);
   if (ch == 32) return (int)launch<32>(qkv, out, B, T, heads, rows, is_bf16, st);
   if (ch == 64) return (int)launch<64>(qkv, out, B, T, heads, rows, is_bf16, st);
-  return (int)cudaErrorInvalidValue;
+  if (ch < 1 || ch > kGenMaxCh) return (int)cudaErrorInvalidValue;
+  return (int)(is_bf16 ? launch_bf16_any<16>(qkv, out, B, T, heads, ch, st)
+                       : launch_f32_any(qkv, out, B, T, heads, ch, st));
 }

@@ -12,9 +12,18 @@ stores them as Conv1d ``(O, I, 1)``, the port as Linear ``(O, I)``.  The
 legacy [head][q|k|v][ch] channel order of ``qkv`` is kept as it is, which is
 the order ``kernels.attention`` reads.  A key that maps nowhere raises.
 
+The classifier's output heads (``EncoderUNetModel``, reference
+``unet.py:822-853``; ``diffpir_tpu/models/convert.py:88-127``) map onto
+``models.variants.EncoderUNet``: the attention pool's ``out.2.*`` (the
+positional embedding stored (C, T+1) becomes (T+1, C), ``qkv_proj`` and
+``c_proj`` Conv1d become Linear), the adaptive head's 1x1 ``out.3`` conv
+becomes a Linear, and the spatial heads' Linears ``out.{0,2,3}`` and
+spatial_v2's GroupNorm ``out.1`` keep their layout; a spatial head is told
+apart by ``out.0.weight`` being 2-D.  ``SuperResModel``'s keys are the
+UNet's; ``prefix="unet."`` places them under ``SuperResUNet.unet``.
+
 ``to_guided_state_dict`` is the inverse (round trips in the tests and the
-smoke).  Classifier pool heads (``diffpir_tpu/models/variants.py``) are not
-covered yet (ROADMAP.md queue A).
+smoke).
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ _ATTN_MAP = {
     ("proj_out",): "proj",
 }
 _SAMPLER_MAP = {("op",): None, ("conv",): None}
-_CONV1D = ("qkv", "proj")
+_CONV1D = ("qkv", "proj", "qkv_proj", "c_proj")
 _LEAVES = ("weight", "bias")
 
 
@@ -60,24 +69,51 @@ def _block(parts: list[str]) -> tuple[str, tuple[str, ...]]:
     return f"{parts[0]}_{parts[1]}_{parts[2]}", tuple(parts[3:-1])
 
 
-def convert_state_dict(state_dict: Mapping[str, object]) -> Dict[str, torch.Tensor]:
-    """A guided-diffusion ``UNetModel`` state dict (tensors or numpy arrays)
-    -> a state dict of the port's ``UNet``, fp32."""
+def _out_head(parts: list[str], spatial: bool) -> str | None:
+    """The port's name of an ``out.*`` key, for every head family: the
+    diffusion UNet (0 GroupNorm, 2 conv), the classifier's attention pool
+    (0 GroupNorm, 2 ``AttentionPool2d``), adaptive (0 GroupNorm, 3 1x1
+    conv), spatial (0, 2 Linear) and spatial_v2 (0 Linear, 1 GroupNorm, 3
+    Linear)."""
+    leaf = parts[-1]
+    if len(parts) == 3 and parts[1] == "2" and leaf == "positional_embedding":
+        return "out_pool.positional_embedding"
+    if leaf not in _LEAVES:
+        return None
+    if len(parts) == 4 and parts[1] == "2" and parts[2] in ("qkv_proj", "c_proj"):
+        return f"out_pool.{parts[2]}.{leaf}"
+    if len(parts) != 3:
+        return None
+    if spatial:
+        if parts[1] in ("0", "2", "3"):
+            return f"out_{parts[1]}.{leaf}"
+        return f"out_norm.{leaf}" if parts[1] == "1" else None
+    if parts[1] == "0":
+        return f"out_norm.{leaf}"
+    return f"out_conv.{leaf}" if parts[1] in ("2", "3") else None
+
+
+def convert_state_dict(state_dict: Mapping[str, object],
+                       prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A guided-diffusion ``UNetModel``, ``SuperResModel`` or
+    ``EncoderUNetModel`` state dict (tensors or numpy arrays) -> a state dict
+    of the port's ``UNet`` or ``EncoderUNet`` (``SuperResUNet`` with
+    ``prefix="unet."``), fp32."""
     out: Dict[str, torch.Tensor] = {}
     unmapped = []
+    spatial = "out.0.weight" in state_dict and np.ndim(state_dict["out.0.weight"]) == 2
     for key, value in state_dict.items():
         parts = key.split(".")
         leaf, head = parts[-1], parts[0]
         name = None
-        if leaf not in _LEAVES:
+        if head == "out":
+            name = _out_head(parts, spatial)
+        elif leaf not in _LEAVES:
             pass
         elif head == "time_embed" and len(parts) == 3:
             name = f"time_embed_{parts[1]}.{leaf}"
         elif head == "label_emb" and len(parts) == 2:
             name = f"label_emb.{leaf}"
-        elif head == "out" and len(parts) == 3 and parts[1] in ("0", "2"):
-            # the diffusion head: 0 GroupNorm, 2 conv (reference unet.py:632-636)
-            name = f"{'out_norm' if parts[1] == '0' else 'out_conv'}.{leaf}"
         elif head in ("input_blocks", "output_blocks", "middle_block") and len(parts) >= 3:
             module, rest = _block(parts)
             if not rest and head == "input_blocks":
@@ -93,7 +129,11 @@ def convert_state_dict(state_dict: Mapping[str, object]) -> Dict[str, torch.Tens
         t = _tensor(value)
         if leaf == "weight" and t.ndim == 3 and name.split(".")[-2] in _CONV1D:
             t = t[:, :, 0]  # Conv1d (O, I, 1) -> Linear (O, I)
-        out[name] = t.contiguous()
+        elif leaf == "weight" and key.startswith("out.3.") and t.ndim == 4:
+            t = t[:, :, 0, 0]  # the adaptive head's 1x1 conv -> Linear
+        elif leaf == "positional_embedding":
+            t = t.T  # (C, T+1) -> (T+1, C)
+        out[prefix + name] = t.contiguous()
     if unmapped:
         raise ValueError(f"unmapped checkpoint keys: {unmapped[:10]}"
                          f" (+{max(0, len(unmapped) - 10)} more)")
@@ -109,19 +149,37 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 _INVERSE = {sub: rest for table in (_RESBLOCK_MAP, _ATTN_MAP) for rest, sub in table.items()}
 
 
-def to_guided_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The port's ``UNet`` state dict -> guided-diffusion's layout (the
-    inverse of ``convert_state_dict``; mirrors the JAX package's
-    ``flax_to_torch_state_dict``), fp32 on the CPU."""
+def to_guided_state_dict(state_dict: Mapping[str, torch.Tensor],
+                         prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The port's ``UNet``, ``EncoderUNet`` or (``prefix="unet."``)
+    ``SuperResUNet`` state dict -> guided-diffusion's layout (the inverse of
+    ``convert_state_dict``), fp32 on the CPU."""
     out: Dict[str, torch.Tensor] = {}
+    spatial_v2 = f"{prefix}out_3.weight" in state_dict
+    adaptive = (f"{prefix}out_conv.weight" in state_dict
+                and state_dict[f"{prefix}out_conv.weight"].ndim == 2)
     for key, value in state_dict.items():
-        *path, leaf = key.split(".")
+        if not key.startswith(prefix):
+            raise ValueError(f"{key!r} does not start with {prefix!r}")
+        *path, leaf = key[len(prefix):].split(".")
         t = value.detach().float().cpu().contiguous()
         module = path[0]
         if module.startswith("time_embed_"):
             name = f"time_embed.{module.rsplit('_', 1)[1]}"
+        elif module == "out_pool":
+            name = "out.2" if len(path) == 1 else f"out.2.{path[1]}"
+            if leaf == "positional_embedding":
+                t = t.T.contiguous()  # (T+1, C) -> (C, T+1)
+            elif leaf == "weight":
+                t = t[:, :, None]  # Linear (O, I) -> Conv1d (O, I, 1)
+        elif module == "out_conv" and adaptive:
+            name = "out.3"  # the adaptive head's Linear -> 1x1 conv
+            if leaf == "weight":
+                t = t[:, :, None, None]
+        elif module in ("out_0", "out_2", "out_3"):
+            name = f"out.{module[-1]}"
         elif module in ("label_emb", "out_norm", "out_conv"):
-            name = {"label_emb": "label_emb", "out_norm": "out.0",
+            name = {"label_emb": "label_emb", "out_norm": "out.1" if spatial_v2 else "out.0",
                     "out_conv": "out.2"}[module]
         else:
             if module.startswith("middle_block_"):

@@ -13,9 +13,9 @@ package's order (``diffpir_tpu/models/zoo.py:134-214``):
 The flat npz files are carried into a PyTorch state dict in memory by
 ``flax_to_torch``; ``torch_to_flax`` and ``save_params_npz`` write the same
 layout back (the trainer's EMA export).  Unlike the JAX package, the port
-writes no converted cache anywhere.  ``init_train_`` is the JAX package's
-training initialisation, matched in distribution.  Still queued (ROADMAP.md
-queue A): the classifier variants of ``diffpir_tpu/models/variants.py``.
+writes no converted cache anywhere; both carry the variants of
+``models/variants.py`` too.  ``init_train_`` is the JAX package's training
+initialisation, matched in distribution.
 """
 
 from __future__ import annotations
@@ -110,11 +110,13 @@ def load_params_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 def flax_to_torch(flat_params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """JAX-package parameters -> a state dict of the port's ``UNet``.
+    """JAX-package parameters -> a state dict of the port's ``UNet``,
+    ``SuperResUNet`` or ``EncoderUNet``.
 
     conv kernel HWIO -> weight OIHW; dense kernel (in, out) -> weight
     (out, in); GroupNorm scale and the class embedding's table -> weight;
-    biases as they are.  Module paths keep their names, ``/`` becoming ``.``.
+    biases and the attention pool's (T+1, C) ``positional_embedding`` as they
+    are.  Module paths keep their names, ``/`` becoming ``.``.
     """
     sd = {}
     for key, v in flat_params.items():
@@ -124,9 +126,9 @@ def flax_to_torch(flat_params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
             v = v.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and v.ndim == 2:
             v = v.T
-        elif leaf not in ("scale", "bias", "embedding"):
+        elif leaf not in ("scale", "bias", "embedding", "positional_embedding"):
             raise KeyError(f"unexpected parameter {key!r}")
-        name = "bias" if leaf == "bias" else "weight"
+        name = {"bias": "bias", "positional_embedding": leaf}.get(leaf, "weight")
         sd[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(v))
     return sd
 
@@ -140,8 +142,8 @@ def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     for key, v in state_dict.items():
         *path, name = key.split(".")
         v = np.array(v.detach().float().cpu(), copy=True)
-        if name == "bias":
-            leaf = "bias"
+        if name in ("bias", "positional_embedding"):
+            leaf = name  # the attention pool's (T+1, C) embedding as it is
         elif path[-1] == "label_emb":
             leaf = "embedding"
         elif v.ndim == 4:

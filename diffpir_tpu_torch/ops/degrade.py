@@ -14,13 +14,17 @@ Copies of ``diffpir_tpu/ops/degrade.py``:
   * ``classical_degradation``  == ``utils/utils_sisr.py:100-114``
   * ``blur_reflect``           == ``ReflectionPad2d`` + grouped ``F.conv2d``
                                   (``main_ddpir.py:304-310``)
-
-``motion_psf`` is not ported: the JAX package rasterises it with Pillow,
-which the port does not use (ROADMAP.md queue A).
+  * ``motion_psf``             == ``diffpir_tpu/ops/degrade.py:236-310``: the
+                                  same numpy draws in the same order, the
+                                  path rasterised by ``utils/raster.py`` and
+                                  ``utils/resample.py`` (Pillow's line,
+                                  Gaussian blur and LANCZOS in numpy), equal
+                                  to the JAX package's PSF bit for bit
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -28,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["box_mask", "random_mask", "make_mask", "fspecial_gaussian",
-           "gaussian_psf", "shift_pixel", "classical_degradation", "blur_reflect"]
+           "gaussian_psf", "motion_psf", "shift_pixel", "classical_degradation",
+           "blur_reflect"]
 
 
 def box_mask(image_size=256, mask_len_range=(128, 129), margin=(16, 16),
@@ -106,6 +111,61 @@ def gaussian_psf(kernel_size: int, std: float) -> np.ndarray:
     n = np.zeros((kernel_size, kernel_size))
     n[kernel_size // 2, kernel_size // 2] = 1.0
     return gaussian_filter(n, sigma=std)
+
+
+def motion_psf(kernel_size: int, intensity: float = 0.5,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Random motion-blur PSF with an intensity knob in [0, 1] (the public
+    ``motionblur.Kernel`` algorithm the reference imports,
+    ``utils/utils_deblur.py:7,691-693``): random step lengths and angles on a
+    2x supersampled canvas, the complex path centred on its centre of mass
+    and randomly rotated, drawn as a polyline of width ``diag/150``, blurred
+    by ``GaussianBlur(0.01 diag)``, LANCZOS-downsampled to ``kernel_size`` and
+    normalised.  A grey RGB canvas converts to L exactly (Pillow's weights
+    19595 + 38470 + 7471 sum to 2^16), so the raster runs on one channel."""
+    from diffpir_tpu_torch.utils.raster import draw_line, gaussian_blur
+    from diffpir_tpu_torch.utils.resample import LANCZOS, resize
+
+    rng = rng or np.random.default_rng()
+    eps = 0.1
+    intensity = float(np.clip(intensity, 0.0, 1.0))
+    sx = sy = 2 * kernel_size
+    diagonal = (sx**2 + sy**2) ** 0.5
+
+    # 1. step lengths
+    max_path_len = 0.75 * diagonal * (rng.uniform() + rng.uniform(0, intensity**2))
+    steps: list[float] = []
+    while sum(steps) < max_path_len:
+        step = rng.beta(1, 30) * (1 - intensity + eps) * diagonal
+        if step < max_path_len:
+            steps.append(step)
+    num_steps = len(steps)
+
+    # 2. step angles
+    max_angle = rng.uniform(0, intensity * math.pi)
+    jitter = rng.beta(2, 20)
+    angles = [rng.uniform(-max_angle, max_angle)]
+    while len(angles) < num_steps:
+        angle = rng.triangular(0, intensity * max_angle, max_angle + eps)
+        sign = -np.sign(angles[-1]) if rng.uniform() < jitter else np.sign(angles[-1])
+        angles.append(angle * (sign if sign != 0 else 1.0))
+
+    # 3. complex path, centred on its centre of mass, randomly rotated
+    incr = np.asarray(steps) * np.exp(1j * np.asarray(angles[:num_steps]))
+    path = np.cumsum(incr) if num_steps else np.zeros(1, complex)
+    path = path - path.mean()
+    path = path * np.exp(1j * rng.uniform(0, math.pi))
+    path = path + (sx + 1j * sy) / 2
+
+    # 4. rasterise on the supersampled canvas, blur, downsample, normalise
+    canvas = np.zeros((sy, sx), np.uint8)
+    draw_line(canvas, [(p.real, p.imag) for p in path], width=int(diagonal / 150))
+    canvas = gaussian_blur(canvas, int(diagonal * 0.01))
+    k = resize(canvas, (kernel_size, kernel_size), LANCZOS).astype(np.float32)
+    k = np.maximum(k, 0.0)
+    if k.sum() <= 0:  # the path fell outside the canvas: a delta PSF
+        k[kernel_size // 2, kernel_size // 2] = 1.0
+    return k / k.sum()
 
 
 def shift_pixel(x: np.ndarray, sf: int, upper_left: bool = True) -> np.ndarray:

@@ -7,6 +7,10 @@ dense (out_len, in_len) matrix built once on the host in numpy
 fp32 ``torch.einsum`` contractions.  On the card fp32 means fp32 only with
 ``torch.backends.cuda.matmul.allow_tf32`` off, which the Runner sets for
 fp32 configs.
+
+``bilinear_resize`` is ``jax.image.resize(..., "bilinear")``, which
+``SuperResUNet`` and the FID's input resize use: the same two contractions
+with ``bilinear_matrix``'s weights.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["resize_matrix", "resize2d", "Resizer2D", "cubic_kernel"]
+__all__ = ["resize_matrix", "resize2d", "Resizer2D", "cubic_kernel",
+           "bilinear_matrix", "bilinear_resize"]
 
 
 def cubic_kernel(x: np.ndarray) -> np.ndarray:
@@ -134,3 +139,36 @@ class Resizer2D:
         if self.Rh.device != x.device:
             self.Rh, self.Rw = self.Rh.to(x.device), self.Rw.to(x.device)
         return _apply(self.Rh, self.Rw, x.float())
+
+
+def bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 weights of ``jax.image.resize``'s bilinear
+    resize along one axis (``compute_weight_mat`` of ``jax/_src/image/
+    scale.py``, antialiased): sample points at half-pixel centres, a triangle
+    kernel widened by in/out when it shrinks, each output's weights divided
+    by their sum, outputs outside the input zero."""
+    f = np.float32
+    inv_scale = f(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f(1.0))
+    sample = (np.arange(out_size, dtype=f) + f(0.5)) * inv_scale - f(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f)[:, None]) / kernel_scale
+    w = np.maximum(f(0.0), f(1.0) - np.abs(x)).astype(f)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f(1.0)), f(0.0)).astype(f)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f(0.0)).astype(f)
+
+
+@lru_cache(maxsize=64)
+def _bilinear_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(bilinear_matrix(in_size, out_size)).to(device)
+
+
+def bilinear_resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, (B, *hw, C), "bilinear")`` for an NHWC tensor,
+    in fp32 (the input's type for bf16 inputs, as JAX casts the weights)."""
+    mh = _bilinear_on(x.shape[1], hw[0], x.device).to(x.dtype)
+    mw = _bilinear_on(x.shape[2], hw[1], x.device).to(x.dtype)
+    x = torch.einsum("bhwc,hH->bHwc", x, mh)
+    return torch.einsum("bHwc,wW->bHWc", x, mw)

@@ -14,9 +14,11 @@ max_pixel=2, the reference's PSNR-Y composition, SSIM, and PSNR/SSIM over
 inpainting holes.  Restored and degraded images, progress strips, the
 inpainting mask, each deblurring PSF and the L|E|H montage of ``save_LEH``
 are written as PNGs under ``results/<result_name>/`` when saving.
-``evaluate`` dispatches batch i+1 before it fetches batch i
-(``overlap_dispatch``).  Still queued (ROADMAP.md queue A): the DIY motion
-PSF, the device mesh, LPIPS/FID and AOT export.
+``calc_LPIPS`` and ``calc_FID`` score each batch with ``metrics.make_lpips``
+and ``metrics.FidScorer`` on the runner's device (``lpips_weights``,
+``fid_weights``).  ``evaluate`` dispatches batch i+1 before it fetches batch
+i (``overlap_dispatch``).  Still queued (ROADMAP.md queue A): the device mesh
+and AOT export.
 """
 
 from __future__ import annotations
@@ -96,18 +98,10 @@ def reference_sweep(cfg: TaskConfig) -> list[tuple[float, float]]:
 
 
 def _check_supported(cfg: TaskConfig) -> None:
-    unported = []
-    if cfg.task == "deblur" and cfg.use_DIY_kernel and cfg.blur_mode != "Gaussian":
-        unported.append(f"use_DIY_kernel with blur_mode={cfg.blur_mode!r}")
     if cfg.mesh_shape is not None:
-        unported.append("mesh_shape")
-    for flag in ("calc_LPIPS", "calc_FID"):
-        if getattr(cfg, flag):
-            unported.append(flag)
-    if unported:
         raise NotImplementedError(
-            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A: the DIY "
-            "motion PSF, the device mesh and LPIPS/FID): " + ", ".join(unported))
+            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A: the device "
+            "mesh, parallel/): mesh_shape")
 
 
 def leh_montage(batch: Batch, x0: np.ndarray, sf: int) -> np.ndarray:
@@ -334,8 +328,23 @@ class Runner:
                 f"no images found under {cfg.L_path!r} (testset_name="
                 f"{cfg.testset_name!r})")
         batches = make_batches(items, cfg.batch_size)
+        lpips_fn = None
+        if cfg.calc_LPIPS:
+            from diffpir_tpu_torch.metrics import make_lpips
 
-        psnrs, psnrs_y, ssims, n_imgs = [], [], [], 0
+            lpips_fn = make_lpips(weights_path=cfg.lpips_weights, device=self.device)
+        fid = None
+        if cfg.calc_FID:
+            # a set-level metric: pool3 features per batch, one Fréchet
+            # distance at the end
+            if not cfg.fid_weights:
+                raise ValueError("calc_FID requires fid_weights (local "
+                                 "InceptionV3 weights; metrics.FidScorer)")
+            from diffpir_tpu_torch.metrics import FidScorer
+
+            fid = FidScorer(cfg.fid_weights, device=self.device)
+
+        psnrs, psnrs_y, ssims, lpipss, n_imgs = [], [], [], [], 0
         psnrs_hole, ssims_hole = [], []
         if save and cfg.task == "inpaint" and cfg.save_progressive_mask:
             im.imsave_batch(batches[0].mask, batches[0].names, cfg.E_path, "mask_")
@@ -385,6 +394,12 @@ class Runner:
                                     for j in range(nb)]))
                 ssims.append(sv * nb)
                 msg += f"; SSIM: {sv:.4f}"
+            if lpips_fn is not None:
+                lp = lpips_fn(x0 * 2 - 1, gt * 2 - 1)
+                lpipss.append(lp * nb)
+                msg += f"; LPIPS: {lp:.4f}"
+            if fid is not None:
+                fid.add(x0, gt)
             n_imgs += nb
             lg.info(msg + f" ({nb} imgs, {dt:.2f}s)")
             if save and frames is not None:
@@ -422,6 +437,8 @@ class Runner:
             "psnr": sum(psnrs) / n_imgs,
             "psnr_y": sum(psnrs_y) / n_imgs if psnrs_y else None,
             "ssim": sum(ssims) / n_imgs if ssims else None,
+            "lpips": sum(lpipss) / n_imgs if lpipss else None,
+            "fid": fid.score() if fid is not None else None,
             "psnr_hole": sum(psnrs_hole) / n_imgs if psnrs_hole else None,
             "ssim_hole": sum(ssims_hole) / n_imgs if ssims_hole else None,
             "n_images": n_imgs,
@@ -434,6 +451,8 @@ class Runner:
                f"{results['psnr']:.4f} dB")
         if results["ssim"] is not None:
             msg += f" | SSIM: {results['ssim']:.4f}"
+        if results["fid"] is not None:
+            msg += f" | FID: {results['fid']:.2f}"
         if results["psnr_hole"] is not None:
             msg += (f" | hole PSNR: {results['psnr_hole']:.4f} dB "
                     f"SSIM: {results['ssim_hole']:.4f}")

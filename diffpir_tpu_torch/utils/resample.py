@@ -1,8 +1,10 @@
-"""Pillow's ``Image.resize`` with ``BOX`` or ``BICUBIC`` for 8-bit images,
-in numpy.
+"""Pillow's ``Image.resize`` with ``BOX``, ``BICUBIC`` or ``LANCZOS`` for
+8-bit images, in numpy.
 
 The training loader resizes as the JAX package's does with Pillow
-(``diffpir_tpu/train/datasets.py:73-86``); the port does not depend on Pillow.
+(``diffpir_tpu/train/datasets.py:73-86``), and the motion PSF downsamples its
+canvas with LANCZOS (``diffpir_tpu/ops/degrade.py:300``); the port does not
+depend on Pillow.
 This follows Pillow's separable resampler (``libImaging/Resample.c``):
 
 * per output pixel a filter window centred at ``(x + 0.5) * scale``, its
@@ -15,11 +17,13 @@ This follows Pillow's separable resampler (``libImaging/Resample.c``):
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-__all__ = ["BOX", "BICUBIC", "resize"]
+__all__ = ["BOX", "BICUBIC", "LANCZOS", "resize"]
 
-BOX, BICUBIC = "box", "bicubic"
+BOX, BICUBIC, LANCZOS = "box", "bicubic", "lanczos"
 _PRECISION_BITS = 32 - 8 - 2
 
 
@@ -35,7 +39,21 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-_FILTERS = {BOX: (_box, 0.5), BICUBIC: (_bicubic, 2.0)}
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """The sinc windowed by a sinc, support 3; ``math.sin`` per tap, the C
+    library's sine as Pillow's."""
+    return np.array([_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0
+                     for v in x.ravel()]).reshape(x.shape)
+
+
+_FILTERS = {BOX: (_box, 0.5), BICUBIC: (_bicubic, 2.0), LANCZOS: (_lanczos, 3.0)}
 
 
 def _coeffs(in_size: int, out_size: int, resample: str):

@@ -242,19 +242,23 @@ def test_prepare_images_bit_for_bit(overrides):
 
 
 def test_prepare_images_refuses_unported_tasks():
-    """What the port still refuses for deblurring: DIY motion PSFs
-    (Pillow-rasterised in the JAX package) in the data path and in the
-    Runner; the first-order prox of sub_1_analytic=false (guidance) and
-    save_LEH now build."""
+    """What the port still refuses for deblurring: the device mesh, in the
+    Runner.  DIY motion PSFs (Pillow-rasterised in the JAX package, numpy
+    here) now go through the data path and the Runner, as do the first-order
+    prox of sub_1_analytic=false (guidance) and save_LEH."""
     path = os.path.join(ROOT, "configs", "demo64_deblur.yaml")
     cfg = tconfig.load_config(path, dict(use_DIY_kernel=True, blur_mode="motion",
                                          cwd=ROOT))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.prepare_images(cfg)
+    np.random.seed(cfg.seed)
+    items = tdata.prepare_images(cfg)
+    for item in items:
+        k = item["kernel"]
+        assert k.shape == (cfg.kernel_size, cfg.kernel_size)
+        assert abs(float(k.sum()) - 1.0) < 1e-5 and (k >= 0).all()
     from diffpir_tpu_torch.runner import Runner
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Runner(tconfig.load_config(path, dict(use_DIY_kernel=True, blur_mode="motion",
-                                              cwd=ROOT)), device="cpu")
-    for over in (dict(sub_1_analytic=False), dict(save_LEH=True)):
+        Runner(tconfig.load_config(path, dict(mesh_shape=[1], cwd=ROOT)), device="cpu")
+    for over in (dict(sub_1_analytic=False), dict(save_LEH=True),
+                 dict(use_DIY_kernel=True, blur_mode="motion")):
         Runner(tconfig.load_config(path, dict(over, cwd=ROOT)), device="cpu")

@@ -118,14 +118,14 @@ def test_runner_restore_matches_jax_runner():
 
 
 def test_runner_refuses_unported_paths():
-    """What the Runner still refuses (ROADMAP.md queue A): the device mesh
-    and LPIPS/FID; the trajectory modes, test_mode and save_LEH it used to
+    """What the Runner still refuses (ROADMAP.md queue A): the device mesh;
+    the trajectory modes, test_mode, save_LEH, LPIPS and FID it used to
     refuse now build."""
     path = os.path.join(ROOT, "configs", "demo32_inpaint.yaml")
-    for over in (dict(mesh_shape=[1]), dict(calc_LPIPS=True), dict(calc_FID=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trunner.Runner(tconfig.load_config(path, over), device="cpu")
-    for over in (dict(generate_mode="repaint"), dict(iter_num_U=2),
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trunner.Runner(tconfig.load_config(path, dict(mesh_shape=[1])), device="cpu")
+    for over in (dict(calc_LPIPS=True), dict(calc_FID=True),
+                 dict(generate_mode="repaint"), dict(iter_num_U=2),
                  dict(model_output_type="pred_x_prev"), dict(log_process=True),
                  dict(save_progressive_mask=True), dict(test_mode=1), dict(test_mode=4),
                  dict(save_LEH=True)):

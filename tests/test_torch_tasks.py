@@ -175,21 +175,22 @@ def test_cli_deblur_sweep_is_one_point_at_7_lambda_3_zeta():
 
 
 def test_unported_options_are_refused():
-    """The DIY motion PSF, LPIPS and FID are still refused on the deblur and
-    SR paths; the first-order prox (sub_1_analytic=false) and the DPS modes
-    now build."""
-    _, tcfg = _configs(DEBLUR, use_DIY_kernel=True, blur_mode="motion")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trunner.Runner(tcfg, device="cpu")
+    """What the deblur and SR paths still refuse: the device mesh, and
+    attention heads wider than the CUDA kernel's 256 channels; the DIY motion
+    PSF, LPIPS, FID, the first-order prox (sub_1_analytic=false) and the DPS
+    modes build."""
     for path in (DEBLUR, SISR):
-        for over in (dict(calc_LPIPS=True), dict(calc_FID=True)):
-            _, tcfg = _configs(path, **over)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                trunner.Runner(tcfg, device="cpu")
+        _, tcfg = _configs(path, mesh_shape=[1])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trunner.Runner(tcfg, device="cpu")
         for over in (dict(sub_1_analytic=False), dict(generate_mode="DPS_y0"),
-                     dict(generate_mode="DPS_yt")):
+                     dict(generate_mode="DPS_yt"), dict(calc_LPIPS=True),
+                     dict(calc_FID=True), dict(use_DIY_kernel=True, blur_mode="motion")):
             _, tcfg = _configs(path, **over)
             trunner.Runner(tcfg, device="cpu")
+    for ch in (257, 320):
+        with pytest.raises(ValueError, match="outside the kernel's 1..256"):
+            tattn.check_inputs(torch.zeros((1, 4, 3 * 2 * ch)), 2)
 
 
 def _model_names():
