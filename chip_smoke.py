@@ -25,7 +25,11 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              its out_norm fp32; the spatial_v2 head's (8, 1, 1, 2048)
              GroupNorm in both types); every head width of the generic
              attention kernel (GENERIC_WIDTHS at T = 64, 256 and 1024, and
-             ODD_WIDTH_CASES) in fp32 and bf16.  Each case is run twice and
+             ODD_WIDTH_CASES), heads wider than 256 (WIDE_CASES) in fp32 and
+             bf16, more (batch, head) pairs than a grid's y holds
+             (PAIRS_CASE), and the sharded GroupNorm's two launches
+             (partial statistics, apply) at a space rank's shards of DEMO256
+             (bf16) and demo64 (fp32).  Each case is run twice and
              must repeat bit for bit; the fp32 high-mean, low-variance GroupNorm input is held
              to the plain version at 1e-3.  Kernel, plain and library-call
              times in two columns: "device", 20 calls captured in a CUDA
@@ -126,6 +130,19 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              equal to lpips_from_weights and fid_from_weights applied on the
              card to a restore_batch of the same batch; ms per image of LPIPS
              and of the pool3 features
+  parallel   the device mesh, ranks sharing the one card over gloo (their
+             collectives staged through host memory) started by
+             parallel.multihost.spawn, each against the same run unsharded
+             in this process (PARALLEL_*): 256x256_diffusion_uncond (553M,
+             seeded random weights, bf16, b1) under tp = 2, one forward and a
+             4-NFE inpaint restore; the trained DEMO256 prior under sp = 2
+             (bf16, b4, 4 NFE), which must launch the sharded GroupNorm's two
+             kernels at every GroupNorm; demo64 under dp x tp x sp = 2x2x2
+             (fp32, 2 NFE); dryrun_train_step(4); and a group of one rank
+             over NCCL made by multihost.initialize, whose restore must equal
+             this process's bit for bit.  Per run: backend, world size,
+             mesh, errors, ms per NFE and peak memory per rank (in the
+             record line's "parallel")
 
 Any failure prints its traceback and exits non-zero with no result line.  On
 success the last lines are the kernels' JSON record, the card's name and
@@ -317,6 +334,23 @@ TOL = {
 # odd widths at a T that is no multiple of a tile
 GENERIC_WIDTHS = (8, 24, 48, 80, 96, 128, 192, 256)
 ODD_WIDTH_CASES = ((2, 100, 3, 1), (2, 100, 3, 7), (2, 65, 2, 255))
+# Heads wider than 256 (attn_wide): a num_head_channels of -1 with one or two
+# heads at ds16 of a 256-px image (T = 256), and 2048 channels over two heads
+# at ds32 (T = 64); and more than 65535 (batch, head) pairs at a short T
+WIDE_CASES = ((4, 256, 2, 320), (4, 256, 1, 512), (2, 64, 2, 1024))
+PAIRS_CASE = (33000, 4, 2, 32)
+# Phase parallel.  Ranks that share the one card run over gloo, a collective
+# going through host memory (gloo's own transport aborts on a CUDA tensor
+# with this torch); so these runs show correctness and memory per rank, not
+# scaling.  553M (256x256_diffusion_uncond, seeded random weights, bf16, b1,
+# 256 px) under tp = 2: one forward and a 4-NFE inpaint restore against the
+# unsharded run at phase flagship's bars; DEMO256 (trained 54M prior, bf16,
+# b4, 256 px, 4 NFE) under sp = 2 at the same bars; demo64 (fp32, 2 NFE)
+# under dp x tp x sp = 2 x 2 x 2 at DRYRUN_ATOL (runner.py: the first step
+# multiplies the UNet's rounding by 156); dryrun_train_step(4) at 1e-5.
+PARALLEL_ITER = 5                  # 4 NFE: the final denoise is skipped
+PARALLEL_MESH3_ITER = 3            # 2 NFE
+PARALLEL_TRAIN_ATOL = 1e-5
 # Phase variants: guided-diffusion's 256x256 classifier (the README's
 # classifier flags and script_util.py create_classifier: image_size 256,
 # classifier_width 128, classifier_depth 2, attention at 32, 16 and 8 px,
@@ -727,6 +761,69 @@ def npz_bytes(**arrays) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     return buf.getvalue()
+
+
+def gn_half_cases(shape, dtype_name, film, silu, gen):
+    """The two halves of the sharded GroupNorm at one shard's shape: the
+    partial statistics and the apply launch, each against its plain version,
+    times, bounds and library calls (``torch.var_mean`` over the groups, and
+    ``F.group_norm`` + FiLM + ``F.silu``, which also takes the statistics)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffpir_tpu_torch.kernels import groupnorm as kgn
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    b, c = shape[0], shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    bias = 0.2 * torch.randn(c, generator=gen, device=dev)
+    fs = fb = None
+    if film:
+        fs = 0.3 * torch.randn((b, c), generator=gen, device=dev)
+        fb = 0.3 * torch.randn((b, c), generator=gen, device=dev)
+    is_bf16 = dtype == torch.bfloat16
+    stats = kgn.merge_partial_stats(kgn.groupnorm_partial_stats_plain(x)[None], is_bf16)
+    xg = x.reshape(b, -1, 32, c // 32)
+    xn, sc, bi = x.permute(0, 3, 1, 2), scale.to(dtype), bias.to(dtype)
+
+    def library_apply():
+        y = F.group_norm(xn, 32, sc, bi, 1e-5)
+        if film:
+            y = y * (1.0 + fs.to(dtype)[:, :, None, None]) + fb.to(dtype)[:, :, None, None]
+        return F.silu(y) if silu else y
+
+    out = {}
+    p_k, p_p, p_again = (kgn.groupnorm_partial_stats(x), kgn.groupnorm_partial_stats_plain(x),
+                         kgn.groupnorm_partial_stats(x))
+    torch.cuda.synchronize()
+    # the partial sums of a shard: relative to their own size
+    err = float(((p_k - p_p).abs() / p_p.abs().clamp_min(1.0)).max())
+    n = x.numel()
+    out["partial"] = dict(
+        err=err, ok=err <= PARTIAL_STATS_RTOL, repeats=torch.equal(p_k, p_again),
+        bytes=n * x.element_size() + b * 32 * 3 * 4, flops=3 * n, dtype=dtype_name,
+        **time_all(kernel=lambda: kgn.groupnorm_partial_stats(x),
+                   plain=lambda: kgn.groupnorm_partial_stats_plain(x),
+                   library=lambda: torch.var_mean(xg, dim=(1, 3))))
+    kern = lambda: kgn.groupnorm_apply_stats(x, scale, bias, stats, fs, fb, do_silu=silu)
+    plain = lambda: kgn.groupnorm_apply_stats_plain(x, scale, bias, stats, fs, fb,
+                                                    do_silu=silu)
+    a_k, a_p, a_again = kern(), plain(), kern()
+    torch.cuda.synchronize()
+    err, ok = max_violation(a_k, a_p, **TOL[("groupnorm_silu", dtype_name)])
+    out["apply"] = dict(
+        err=err, ok=ok, repeats=torch.equal(a_k, a_again),
+        bytes=2 * n * x.element_size() + (2 * c + 2 * b * 32 + (2 * b * c if film else 0)) * 4,
+        flops=n * (2 + (4 if silu else 0)), dtype=dtype_name,
+        **time_all(kernel=kern, plain=plain, library=library_apply))
+    return out
+
+
+# the partial statistics against the plain version's, relative to each sum's
+# size (floored at 1): fp32 sums over a shard in a different order
+PARTIAL_STATS_RTOL = 1e-4
 
 
 def bound(case) -> tuple[float, str]:
@@ -1655,6 +1752,266 @@ def metrics_phase(dev, cli_main, task_psnr: dict, task_launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: what the ranks run (each rank a process on the one card)
+# ---------------------------------------------------------------------------
+
+def _parallel_cfg(task, model_name, dtype, batch, iter_num, shape=None, axes=None):
+    from diffpir_tpu_torch.config import load_config
+
+    return load_config(None, overrides=dict(
+        task=task, model_name=model_name, iter_num=iter_num, iter_num_U=1,
+        batch_size=batch, noise_level_img=0.0, seed=0, dtype=dtype, save_L=False,
+        save_E=False, mesh_shape=shape, mesh_axes=axes))
+
+
+def _parallel_restore(cfg, batch, nfe):
+    """One restore of ``batch`` under ``cfg``'s mesh (if any) on this rank's
+    card: (images, ms per NFE, peak bytes over the memory held before it,
+    parameter bytes, launches)."""
+    import torch
+
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.parallel.multihost import rank_device
+    from diffpir_tpu_torch.runner import Runner
+
+    dev = rank_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runner = Runner(cfg, device=dev)
+    runner.restore_batch(batch, seed=0)  # warm-up: allocations, cuDNN's choices
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = runner.restore_batch(batch, seed=0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / nfe
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    params = sum(p.numel() * p.element_size() for p in runner.model.parameters())
+    return runner, out, ms, peak, params, launches
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def parallel_pair(work: str) -> dict:
+    """Two ranks (or, with no group, the unsharded reference): the 553M
+    model under tp = 2 (one forward, a 4-NFE inpaint restore) and DEMO256
+    under sp = 2 (a 4-NFE inpaint restore)."""
+    import torch
+    import torch.distributed as dist
+
+    from diffpir_tpu_torch.runner import _dryrun_batch
+
+    sharded = dist.is_initialized()
+    tag = "ranks" if sharded else "ref"
+    res = {}
+    nfe = PARALLEL_ITER - 1
+    cfg = _parallel_cfg("inpaint", "256x256_diffusion_uncond", "bfloat16", 1,
+                        PARALLEL_ITER, (1, 2) if sharded else None,
+                        ("data", "model") if sharded else None)
+    batch = _dryrun_batch(np.random.default_rng(0), 1, 256, "inpaint")
+    runner, out, ms, peak, params, launches = _parallel_restore(cfg, batch, nfe)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 256, 256, 3)).astype(np.float32)).to(runner.device)
+    with torch.no_grad():
+        fwd = runner.model(x, torch.tensor([500], device=runner.device)).float()
+    if _is_rank0():
+        np.save(os.path.join(work, f"tp553_{tag}_restore.npy"), out)
+        np.save(os.path.join(work, f"tp553_{tag}_forward.npy"), fwd.cpu().numpy())
+    res["tp553"] = dict(ms_per_nfe=ms, peak_bytes=peak, param_bytes=params,
+                        launches=launches, weights=runner.weights_provenance)
+    del runner, x, fwd
+    torch.cuda.empty_cache()
+
+    cfg = _parallel_cfg("inpaint", "demo256", "bfloat16", 4, PARALLEL_ITER,
+                        (1, 2) if sharded else None, ("data", "space") if sharded else None)
+    batch = _dryrun_batch(np.random.default_rng(2), 4, 256, "inpaint")
+    runner, out, ms, peak, params, launches = _parallel_restore(cfg, batch, nfe)
+    if _is_rank0():
+        np.save(os.path.join(work, f"sp256_{tag}_restore.npy"), out)
+    res["sp256"] = dict(ms_per_nfe=ms, peak_bytes=peak, param_bytes=params,
+                        launches=launches, weights=runner.weights_provenance)
+    return res
+
+
+def parallel_mesh8(work: str) -> dict:
+    """Eight ranks (or the unsharded reference): demo64 (fp32, 2 NFE) under
+    dp x tp x sp = 2 x 2 x 2."""
+    import torch.distributed as dist
+
+    from diffpir_tpu_torch.runner import _dryrun_batch
+
+    sharded = dist.is_initialized()
+    cfg = _parallel_cfg("inpaint", "demo64_hq", "float32", 2, PARALLEL_MESH3_ITER,
+                        (2, 2, 2) if sharded else None,
+                        ("data", "model", "space") if sharded else None)
+    batch = _dryrun_batch(np.random.default_rng(3), 2, 64, "inpaint")
+    _, out, ms, peak, params, launches = _parallel_restore(cfg, batch,
+                                                           PARALLEL_MESH3_ITER - 1)
+    if _is_rank0():
+        np.save(os.path.join(work, f"mesh8_{'ranks' if sharded else 'ref'}.npy"), out)
+    return dict(ms_per_nfe=ms, peak_bytes=peak, param_bytes=params, launches=launches)
+
+
+def parallel_train() -> dict:
+    """Four ranks: the sharded dry-run train step on the card."""
+    import torch
+
+    from diffpir_tpu_torch.train.loop import dryrun_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = dryrun_train_step(4)
+    return dict(loss=loss, s=time.perf_counter() - t0,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def parallel_nccl(work: str, port: int) -> dict:
+    """A group of one rank over NCCL, made by ``multihost.initialize``: its
+    collectives on the card, and a Runner's restore under it."""
+    import torch
+    import torch.distributed as dist
+
+    from diffpir_tpu_torch.parallel import multihost
+    from diffpir_tpu_torch.runner import _dryrun_batch
+
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    backend = dist.get_backend()
+    t = torch.arange(4.0, device="cuda")
+    dist.all_reduce(t)
+    g = torch.empty(4, device="cuda")
+    dist.all_gather_into_tensor(g, t)
+    cfg = _parallel_cfg("inpaint", "tiny_demo32", "float32", 2, PARALLEL_MESH3_ITER)
+    batch = _dryrun_batch(np.random.default_rng(4), 2, 32, "inpaint")
+    runner, out, ms, peak, params, launches = _parallel_restore(
+        cfg, batch, PARALLEL_MESH3_ITER - 1)
+    np.save(os.path.join(work, "nccl_restore.npy"), out)
+    dist.destroy_process_group()
+    return dict(backend=backend, world=1, collectives_ok=bool(
+        torch.equal(g, torch.arange(4.0, device="cuda"))), mesh=runner.mesh is not None,
+        ms_per_nfe=ms, peak_bytes=peak)
+
+
+def parallel_phase(dev, root: str) -> dict:
+    """Phase parallel (see the module docstring and PARALLEL_*)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from diffpir_tpu_torch.kernels.build import BUILD_DIR
+    from diffpir_tpu_torch.parallel.multihost import free_port, spawn
+    from diffpir_tpu_torch.runner import DRYRUN_ATOL, _dryrun_batch
+    from diffpir_tpu_torch.train.loop import dryrun_train_step
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="parallel_", dir=BUILD_DIR)
+    env = {"PYTHONPATH": os.pathsep.join([root, REPO])}
+    runs = []
+    try:
+        t0 = time.perf_counter()
+        pair = spawn("chip_smoke:parallel_pair", 2, [work], env=env, timeout=600)
+        pair_s = time.perf_counter() - t0
+        ref = parallel_pair(work)
+        torch.cuda.empty_cache()
+        load = lambda name: np.load(os.path.join(work, name))  # noqa: E731
+        # 553M, tp = 2
+        f_r, f_u = load("tp553_ranks_forward.npy"), load("tp553_ref_forward.npy")
+        fwd_rel = float(np.abs(f_r - f_u).max() / np.abs(f_u).max())
+        img = np.abs(load("tp553_ranks_restore.npy") - load("tp553_ref_restore.npy"))
+        runs.append(dict(
+            run="256x256_diffusion_uncond tp=2 bf16 b1 256px", backend="gloo (host-staged)",
+            world=2, mesh={"data": 1, "model": 2}, forward_max_rel_err=fwd_rel,
+            max_abs_err=float(img.max()), mean_abs_err=float(img.mean()),
+            ms_per_nfe_per_rank=[r["tp553"]["ms_per_nfe"] for r in pair],
+            peak_bytes_per_rank=[r["tp553"]["peak_bytes"] for r in pair],
+            param_bytes_per_rank=[r["tp553"]["param_bytes"] for r in pair],
+            unsharded=dict(ms_per_nfe=ref["tp553"]["ms_per_nfe"],
+                           peak_bytes=ref["tp553"]["peak_bytes"],
+                           param_bytes=ref["tp553"]["param_bytes"]),
+            launches_rank0=pair[0]["tp553"]["launches"]))
+        if not (fwd_rel <= FLAGSHIP_FORWARD_REL_TOL
+                and float(img.mean()) <= FLAGSHIP_IMAGE_MEAN_TOL):
+            raise AssertionError(f"553M tp=2 against unsharded: forward {fwd_rel}, "
+                                 f"images mean {float(img.mean())}")
+        # DEMO256, sp = 2
+        img = np.abs(load("sp256_ranks_restore.npy") - load("sp256_ref_restore.npy"))
+        sp_launches = pair[0]["sp256"]["launches"]
+        runs.append(dict(
+            run="demo256 sp=2 bf16 b4 256px", backend="gloo (host-staged)", world=2,
+            mesh={"data": 1, "space": 2}, max_abs_err=float(img.max()),
+            mean_abs_err=float(img.mean()),
+            ms_per_nfe_per_rank=[r["sp256"]["ms_per_nfe"] for r in pair],
+            peak_bytes_per_rank=[r["sp256"]["peak_bytes"] for r in pair],
+            unsharded=dict(ms_per_nfe=ref["sp256"]["ms_per_nfe"],
+                           peak_bytes=ref["sp256"]["peak_bytes"]),
+            launches_rank0=sp_launches, weights=pair[0]["sp256"]["weights"]))
+        nfe = PARALLEL_ITER - 1
+        want = {"groupnorm_partial_stats": 65 * nfe, "groupnorm_apply_stats": 65 * nfe,
+                "legacy_qkv_attention": 4 * nfe}
+        if not float(img.mean()) <= FLAGSHIP_IMAGE_MEAN_TOL or sp_launches != want:
+            raise AssertionError(f"demo256 sp=2: images mean {float(img.mean())}, "
+                                 f"launches {sp_launches} (expected {want})")
+        # demo64, dp x tp x sp
+        t0 = time.perf_counter()
+        mesh8 = spawn("chip_smoke:parallel_mesh8", 8, [work], env=env, timeout=600)
+        mesh8_s = time.perf_counter() - t0
+        mref = parallel_mesh8(work)
+        err = float(np.abs(load("mesh8_ranks.npy") - load("mesh8_ref.npy")).max())
+        runs.append(dict(
+            run="demo64_hq dp x tp x sp = 2x2x2 fp32 b2 64px", backend="gloo (host-staged)",
+            world=8, mesh={"data": 2, "model": 2, "space": 2}, max_abs_err=err,
+            ms_per_nfe_per_rank=[r["ms_per_nfe"] for r in mesh8],
+            peak_bytes_per_rank=[r["peak_bytes"] for r in mesh8],
+            unsharded=dict(ms_per_nfe=mref["ms_per_nfe"], peak_bytes=mref["peak_bytes"]),
+            launches_rank0=mesh8[0]["launches"]))
+        if not err <= DRYRUN_ATOL:
+            raise AssertionError(f"demo64 2x2x2 differs from unsharded by {err}")
+        # the sharded train step
+        train = spawn("chip_smoke:parallel_train", 4, [], env=env, timeout=600)
+        ref_loss = dryrun_train_step(1)
+        err = max(abs(r["loss"] - ref_loss) for r in train)
+        runs.append(dict(run="dryrun_train_step(4) fp32", backend="gloo (host-staged)",
+                         world=4, mesh={"data": 2, "model": 2}, loss=train[0]["loss"],
+                         loss_one_rank=ref_loss, max_abs_err=err,
+                         s_per_rank=[r["s"] for r in train],
+                         peak_bytes_per_rank=[r["peak_bytes"] for r in train]))
+        if not err <= PARALLEL_TRAIN_ATOL:
+            raise AssertionError(f"sharded train loss {train[0]['loss']}, one rank "
+                                 f"{ref_loss}")
+        # one rank over NCCL
+        (nccl,) = spawn("chip_smoke:parallel_nccl", 1, [work, free_port()], env=env,
+                        timeout=300)
+        from diffpir_tpu_torch.runner import Runner
+
+        cfg = _parallel_cfg("inpaint", "tiny_demo32", "float32", 2, PARALLEL_MESH3_ITER)
+        own = Runner(cfg, device=dev).restore_batch(
+            _dryrun_batch(np.random.default_rng(4), 2, 32, "inpaint"), seed=0)
+        equal = bool(np.array_equal(own, load("nccl_restore.npy")))
+        runs.append(dict(run="tiny_demo32 one-rank NCCL group", world=1,
+                         backend=nccl["backend"], mesh=None,
+                         max_abs_err=float(np.abs(own - load("nccl_restore.npy")).max()),
+                         bit_equal=equal, collectives_ok=nccl["collectives_ok"],
+                         ms_per_nfe_per_rank=[nccl["ms_per_nfe"]],
+                         peak_bytes_per_rank=[nccl["peak_bytes"]]))
+        if not (nccl["backend"] == "nccl" and nccl["collectives_ok"] and equal):
+            raise AssertionError(f"one-rank NCCL group: {nccl}, bit-equal {equal}")
+        for r in runs:
+            log("parallel: " + json.dumps(r))
+        log(f"parallel: spawned groups took {pair_s:.1f} s (2 ranks) and {mesh8_s:.1f} s "
+            "(8 ranks), rank start-up included")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(runs=runs, sp_launches=sp_launches)
+
+
 def timed_host_ms(fn, iters: int = 5) -> float:
     """Mean wall time of ``fn`` in ms (host round trips included: each call
     takes numpy in and gives a number or numpy back)."""
@@ -1820,13 +2177,14 @@ def run(argv: list[str]) -> int:
             for ch in GENERIC_WIDTHS:
                 for t in (64, 256, 1024):
                     attn_keys.add((8, t, 4, ch, dt))
-            for key in ODD_WIDTH_CASES:
+            for key in ODD_WIDTH_CASES + WIDE_CASES:
                 attn_keys.add(key + (dt,))
             # the spatial_v2 classifier head's GroupNorm: one pixel, 2048 channels
             gn_keys.add(((CLASSIFIER_BATCH, 1, 1, 2048), dt, False, False))
         # the classifier in its own types: bf16, and fp32 at out_norm
         for c in callsclf:
             (gn_keys if c[0] == "gn" else attn_keys).add(c[1:])
+        attn_keys.add(PAIRS_CASE + ("bfloat16",))
 
         def columns(r):
             return " ".join(f"{k}={r[k]:.4f}" for k in (
@@ -1851,6 +2209,27 @@ def run(argv: list[str]) -> int:
                 + ("" if r["ok"] and r["repeats"] else "  FAIL"))
             if not (r["ok"] and r["repeats"]):
                 failures.append(("legacy_qkv_attention",) + key)
+        # the sharded GroupNorm's halves at a space rank's shard of DEMO256
+        # (bf16, batch 4, half the rows: phase parallel's sp run) and of demo64
+        # (fp32)
+        half_keys = set()
+        for calls, dt in ((calls256, "bfloat16"), (calls64, "float32")):
+            for c in calls:
+                if c[0] == "gn":
+                    b_, h_, w_, c_ = c[1]
+                    half_keys.add(((b_, h_ // 2, w_, c_), dt, c[3], c[4]))
+        half = {}
+        for key in sorted(half_keys):
+            r = half[key] = gn_half_cases(*key, gen)
+            for part, name in (("partial", "groupnorm_partial_stats"),
+                               ("apply", "groupnorm_apply_stats")):
+                rp = r[part]
+                log(f"{name} shape={key[0]} {key[1]} film={key[2]} silu={key[3]}: "
+                    f"max_err={rp['err']:.3e} repeats={rp['repeats']} {columns(rp)} "
+                    f"bound_ms={bound(rp)[0]:.4e}"
+                    + ("" if rp["ok"] and rp["repeats"] else "  FAIL"))
+                if not (rp["ok"] and rp["repeats"]):
+                    failures.append((name,) + key)
         hm = gn_high_mean_case(gen)
         log(f"groupnorm_silu high mean (4, 64, 64, 384) float32 x*0.03+100: |kernel - "
             f"plain| {hm['err']:.3e} (atol 1e-3); against fp64 statistics: kernel "
@@ -1883,6 +2262,27 @@ def run(argv: list[str]) -> int:
 
         per_fwd = {(path, kind): per_forward(calls, kind)
                    for path, calls in paths for kind in ("gn", "attn")}
+
+        def half_per_forward(part):
+            """Sums over the GroupNorm calls of one DEMO256 forward on a space
+            rank (batch 4, 128 of the 256 rows) of one half."""
+            rows = [half[((c[1][0], c[1][1] // 2) + c[1][2:], "bfloat16", c[3], c[4])][part]
+                    for c in calls256 if c[0] == "gn"]
+            tot = {k: sum(r[k] for r in rows) for k in timed}
+            tot["bound_ms"] = sum(bound(r)[0] for r in rows)
+            by = [bound(r)[1] for r in rows]
+            tot["bound_by"] = max(set(by), key=by.count)
+            tot["max_abs_err"] = max(r["err"] for r in rows)
+            tot["calls"] = len(rows)
+            return tot
+
+        per_fwd[("demo256 sp2 shard", "partial")] = half_per_forward("partial")
+        per_fwd[("demo256 sp2 shard", "apply")] = half_per_forward("apply")
+        wide = {" ".join(map(str, k[1:])): {f: results[k][f] for f in
+                                             ("err", "ms", "plain_ms", "library_ms")}
+                | {"bound_ms": bound(results[k])[0]}
+                for k in results if k[0] == "attn"
+                and (k[1:5] in WIDE_CASES or k[1:5] == PAIRS_CASE)}
         for (path, kind), tot in per_fwd.items():
             log(f"per forward {path} {kind}: {tot['calls']} calls, kernel "
                 f"{tot['ms']:.4f} ms device / {tot['dispatch_ms']:.4f} ms dispatch, "
@@ -2184,6 +2584,9 @@ def run(argv: list[str]) -> int:
         metrics_out = metrics_phase(dev, cli_main, task_psnr, task_launches)
         log("metrics: " + json.dumps(metrics_out))
 
+    with phase("parallel"):
+        parallel_out = parallel_phase(dev, root)
+
     record = {"kernels": []}
     for name, kind, source, replaces in (
             ("groupnorm_silu", "gn", "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
@@ -2224,6 +2627,35 @@ def run(argv: list[str]) -> int:
             "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)],
             "train_demo256_b16_per_forward": per_fwd[("demo256 b16", kind)],
             "classifier_b8_per_forward": per_fwd[("classifier b8", kind)]})
+        if kind == "gn":
+            record["kernels"][-1]["launches_per_path"]["parallel 553M tp=2 rank 0"] = \
+                parallel_out["runs"][0]["launches_rank0"].get(name, 0)
+        else:
+            record["kernels"][-1]["wide_heads_and_pairs"] = wide
+            record["kernels"][-1]["launches_per_path"]["parallel demo256 sp=2 rank 0"] = \
+                parallel_out["sp_launches"].get(name, 0)
+    # the two halves of the sharded GroupNorm, on the sp path: launches of
+    # rank 0 of phase parallel's DEMO256 sp=2 restore, times summed over the
+    # calls of one forward on a space rank
+    for name, part in (("groupnorm_partial_stats", "partial"),
+                       ("groupnorm_apply_stats", "apply")):
+        tot = per_fwd[("demo256 sp2 shard", part)]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
+            "replaces": "diffpir_tpu/pallas/groupnorm.py:73",
+            "launches": parallel_out["sp_launches"].get(name, 0),
+            "max_abs_err": max(r[part]["err"] for r in half.values()),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
+            "dispatch_ms": tot["dispatch_ms"],
+            "plain_dispatch_ms": tot["plain_dispatch_ms"],
+            "library_dispatch_ms": tot["library_dispatch_ms"],
+            "basis": "sum over the GroupNorm calls of one DEMO256 forward on one of "
+                     "two space ranks (bf16, batch 4, 128 of 256 rows); library: "
+                     + ("torch.var_mean over the groups" if part == "partial" else
+                        "F.group_norm + FiLM + F.silu (statistics included)")})
+    record["parallel"] = parallel_out["runs"]
     log("serve: " + json.dumps(serve_out))
     log("train: " + json.dumps(train_out))
     log(json.dumps(record))

@@ -144,15 +144,21 @@ def prepare_images(cfg: TaskConfig, paths: Optional[list[str]] = None) -> list[d
     return items
 
 
-def make_batches(items: list[dict], batch_size: int) -> list[Batch]:
+def make_batches(items: list[dict], batch_size: int,
+                 pad_to_batch: bool = False) -> list[Batch]:
     """Group per-image items into batches of at most ``batch_size``.
 
     Kernels inside one batch are zero-padded to a common size with the centre
     kept at size//2, which ``psf_to_otf`` rolls to the origin, so the padding
-    leaves the OTF unchanged."""
+    leaves the OTF unchanged.  With ``pad_to_batch`` a short last batch is
+    filled up by repeating its first item (a batch split over data ranks);
+    its ``names`` keep only the real items."""
     batches = []
     for i in range(0, len(items), batch_size):
         chunk = items[i:i + batch_size]
+        n_real = len(chunk)
+        if pad_to_batch and n_real < batch_size:
+            chunk = chunk + [chunk[0]] * (batch_size - n_real)
         kmax = max(it["kernel"].shape[0] for it in chunk)
         kmax2 = max(it["kernel"].shape[1] for it in chunk)
 
@@ -168,7 +174,7 @@ def make_batches(items: list[dict], batch_size: int) -> list[Batch]:
             img_L=np.stack([it["img_L"] for it in chunk]).astype(np.float32),
             kernel=np.stack([pad_k(it["kernel"]) for it in chunk]).astype(np.float32),
             mask=np.stack([it["mask"] for it in chunk]).astype(np.float32),
-            names=[it["name"] for it in chunk],
+            names=[it["name"] for it in chunk[:n_real]],
             init=(np.stack([it["init"] for it in chunk]).astype(np.float32)
                   if has_init else None),
         ))

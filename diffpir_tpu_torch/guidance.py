@@ -80,7 +80,8 @@ def make_grad_prox(operator: Callable, measurement: torch.Tensor) -> Callable:
 
 def dps_sample(diffusion: Diffusion, model: Callable, operator: Callable,
                plan: TrajectoryPlan, x_init: torch.Tensor, *, noise: NoiseFn,
-               mode: str, task: str, y: torch.Tensor, lambda_=1.0) -> torch.Tensor:
+               mode: str, task: str, y: torch.Tensor, lambda_=1.0,
+               batch_sum: Optional[Callable] = None) -> torch.Tensor:
     """The DPS trajectory; returns the restored image in [0, 1].
 
     Per kept step, one ancestral ``p_sample`` (x_prev, x0_hat) and then the
@@ -89,6 +90,10 @@ def dps_sample(diffusion: Diffusion, model: Callable, operator: Callable,
     ``sampler.model_fn(den)``.  ``lambda_`` must be the value the plan's rho
     was built with, or a per-sample (B,) value with a plan built at lambda 1
     (the factor cancels in the DPS_yt step, ``main_ddpir.py:443``).
+    ``batch_sum``, where the batch's rows are spread over ranks, sums a
+    tensor over them: DPS_y0's norm is then the whole batch's.  (DPS_yt and
+    the first-order prox use the gradient times the norm, which is the same
+    on each rank's rows.)
     """
     if mode not in ("DPS_y0", "DPS_yt"):
         raise ValueError(f"unknown DPS mode {mode!r}")
@@ -105,6 +110,11 @@ def dps_sample(diffusion: Diffusion, model: Callable, operator: Callable,
                 out = diffusion.p_sample(model, xv, t_vec, n_samp)
                 norm = frobenius_residual(operator, out["pred_xstart"], measurement)
                 (grad,) = torch.autograd.grad(norm, xv)
+            if batch_sum is not None:
+                # d||r|| / dx over the whole batch = d||r_rows|| / dx scaled by
+                # ||r_rows|| / ||r||
+                norm = norm.detach()
+                grad = grad * (norm / torch.sqrt(batch_sum(norm * norm)))
             x = out["sample"].detach() - grad * 1.0
             continue
         with torch.no_grad():

@@ -4,8 +4,10 @@ Port of the TPU kernel ``diffpir_tpu/pallas/attention.py::legacy_qkv_attention``
 (defined at ``:47``, ``pl.pallas_call`` at ``:62``, body ``_attn_kernel`` at
 ``:32-43``) to the CUDA kernel
 in ``csrc/attention.cu`` (bf16 on tensor cores, fp32 on CUDA cores; tuned
-kernels for head widths 16, 32 and 64, and kernels taking every other width
-from 1 to 256).  qkv is
+kernels for head widths 16, 32 and 64, kernels taking every other width up
+to 256, and one taking any wider head through shared memory in chunks, with
+its logits in a workspace this wrapper allocates).  Any number of
+(batch, head) pairs is taken.  qkv is
 (B, T, 3*C) with channel layout [head][q|k|v][ch]; q and k are both scaled by
 ch^-1/4; logits and softmax are fp32; the output is (B, T, C).
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
+import sys
 
 import torch
 
@@ -32,14 +35,18 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
            "LegacyQKVAttentionFunction", "attention_rows_per_block", "check_inputs"]
 
-MAX_HEAD_CHANNELS = 256
 # head widths the kernel takes: tuned paths run 16, 32 and 64, the other
-# widths' kernels the rest up to MAX_HEAD_CHANNELS
-KERNEL_HEAD_CHANNELS = range(1, MAX_HEAD_CHANNELS + 1)
+# widths' kernels the rest up to WIDE_HEAD_CHANNELS, attn_wide every wider one
+KERNEL_HEAD_CHANNELS = range(1, sys.maxsize)
+WIDE_HEAD_CHANNELS = 256
 # query tiles the kernel takes, largest first: bf16 warps own 16 rows (tiles
 # of 16, 32) or 32 rows (64, 128); fp32 warps own 8 rows, at most 256 threads
 ROWS_PER_BLOCK = {True: (128, 64, 32, 16), False: (64, 32, 16)}
-MAX_PAIRS = 65535              # batch*heads: the grid's y extent
+# attn_wide: 16 query rows per work item, each block's logits in the
+# workspace (16 * T floats), at most WIDE_BLOCKS blocks or WIDE_WS_BYTES
+WIDE_ROWS = 16
+WIDE_BLOCKS = 1056
+WIDE_WS_BYTES = 256 << 20
 
 
 def attention_rows_per_block(batch: int, t: int, heads: int, is_bf16: bool,
@@ -74,20 +81,22 @@ def legacy_qkv_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tenso
     return out.reshape(b, t, num_heads * ch)
 
 
+def wide_blocks(batch: int, t: int, heads: int) -> int:
+    """Blocks of attn_wide: one per (pair, 16-row query tile), at most
+    ``WIDE_BLOCKS`` and as many as ``WIDE_WS_BYTES`` of workspace hold."""
+    items = batch * heads * -(-t // WIDE_ROWS)
+    budget = max(1, WIDE_WS_BYTES // (WIDE_ROWS * t * 4))
+    return min(items, WIDE_BLOCKS, budget)
+
+
 def check_inputs(qkv: torch.Tensor, num_heads: int) -> int:
     """Raise unless the kernel takes ``qkv`` with ``num_heads`` heads
-    (shape, head width, batch*heads, type, contiguity, 16-byte alignment);
-    returns the head width."""
-    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+    (shape, type, contiguity, 16-byte alignment); returns the head width."""
+    if (qkv.ndim != 3 or num_heads < 1 or qkv.shape[-1] % (3 * num_heads)
+            or qkv.shape[-1] == 0):
         raise ValueError(f"legacy_qkv_attention takes (B, T, 3*heads*ch), got "
                          f"{tuple(qkv.shape)} with {num_heads} heads")
-    b, _, w = qkv.shape
-    ch = w // (3 * num_heads)
-    if ch not in KERNEL_HEAD_CHANNELS:
-        raise ValueError(f"legacy_qkv_attention: head width {ch} is outside the "
-                         f"kernel's 1..{MAX_HEAD_CHANNELS}")
-    if b * num_heads > MAX_PAIRS:
-        raise ValueError(f"legacy_qkv_attention: batch*heads exceeds {MAX_PAIRS}")
+    ch = qkv.shape[-1] // (3 * num_heads)
     check_cuda_tensor("qkv", qkv, qkv.device)
     check_aligned("qkv", qkv)
     return ch
@@ -105,8 +114,13 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     is_bf16 = qkv.dtype == torch.bfloat16
     # the tuned widths' query tile (the other widths' kernels ignore it)
     rows = attention_rows_per_block(b, t, num_heads, is_bf16, _num_sms(qkv.device.index))
+    ws, blocks = None, 0
+    if ch > WIDE_HEAD_CHANNELS or num_heads > 65535:
+        blocks = wide_blocks(b, t, num_heads)
+        ws = torch.empty(blocks * WIDE_ROWS * t, dtype=torch.float32, device=qkv.device)
     rc = lib.diffpir_legacy_qkv_attention(
         qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch, rows, int(is_bf16),
+        None if ws is None else ws.data_ptr(), blocks,
         current_stream_handle(qkv.device))
     raise_on_error("legacy_qkv_attention", rc)
     LAUNCHES["legacy_qkv_attention"] += 1

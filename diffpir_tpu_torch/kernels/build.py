@@ -41,8 +41,15 @@ _SIGNATURES = {
     # B, HW, C, G, S, slice, rows, eps, silu, is_bf16, stream
     "diffpir_groupnorm_silu": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # qkv, out, B, T, heads, ch, rows, is_bf16, stream
-    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, partial, workspace, counters, B, HW, C, G, S, slice, rows, is_bf16, stream
+    "diffpir_groupnorm_partial_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _P],
+    # x, out, scale, bias, film_scale, film_shift, stats, B, HW, C, G, rows,
+    # silu, is_bf16, stream
+    "diffpir_groupnorm_apply_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _P],
+    # qkv, out, B, T, heads, ch, rows, is_bf16, workspace, ws_blocks, stream
+    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

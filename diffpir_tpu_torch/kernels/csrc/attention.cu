@@ -52,6 +52,16 @@
 // (attn_f32_any) a simple kernel on CUDA cores takes ch at run time: 16
 // rows per block, 8 lanes per row, Q and a 32-key K/V tile in shared memory
 // (up to 82 KB at ch 256); every product reads shared memory, so it is slow.
+//
+// Design, widths above 256 (attn_wide, both types): a num_head_channels of
+// -1 with one or two heads gives 320, 512 or 1024 channels a head, which no
+// tile of registers holds.  The head width goes through shared memory in
+// chunks of 64 channels: Q.K^T accumulates chunk by chunk, the logits of a
+// 16-row query tile go to a workspace the wrapper allocates (16 * T floats a
+// block), and P.V is written chunk by chunk.  Blocks loop over (pair, query
+// tile) items, so neither the grid nor the workspace grows with the batch.
+// The kernels above take the (batch, head) pairs on grid y, at most 65535;
+// more pairs run as several launches over whole samples.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -810,6 +820,160 @@ attn_bf16_any(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// head widths above 256, either type: the head width tiled through shared
+// memory, the logits of a query tile in a workspace
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 16;     // query rows per work item
+constexpr int kWideKeys = 32;     // keys per tile
+constexpr int kWideCh = 64;       // channels per chunk
+constexpr int kWideLanes = 8;     // lanes per query row
+constexpr int kWideThreads = kWideRows * kWideLanes;
+
+__device__ __forceinline__ float wide_load(const float* p) { return *p; }
+__device__ __forceinline__ float wide_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void wide_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void wide_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// v rounded to the input type, as the plain version casts the weights
+__device__ __forceinline__ float wide_round(float v, const float*) { return v; }
+__device__ __forceinline__ float wide_round(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Any ch, and any number of (batch, head) pairs.  A work item is 16 query
+// rows of one pair; block x takes items x, x + gridDim.x, ..., so the grid
+// has no limit on pairs, and its workspace ws + x * 16 * T holds the item's
+// logits.  Pass 1: for each tile of 32 keys, S = Q.K^T accumulates over
+// chunks of 64 channels staged in shared memory (8 lanes per row, keys
+// lane, lane + 8, ...) and goes to the workspace in the log2 domain.  Then
+// each row's softmax in fp32 (max and sum by 8-lane shuffles), the weights
+// rounded to the input type as the plain version rounds them.  Pass 2: for
+// each chunk of 64 output channels, O = P.V over tiles of 32 keys, the V
+// chunk and the weights' tile staged in shared memory.  Every product reads
+// shared memory and P is read ch / 64 times: slow, and exact to fp32
+// accumulation.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+attn_wide(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ ws,
+          int T_, int H, int ch, long long items, int qtiles, float scale_log2) {
+  __shared__ float Qs[kWideRows][kWideCh + 1];
+  __shared__ float KVs[kWideKeys][kWideCh + 1];
+  __shared__ float Ps[kWideRows][kWideKeys + 1];
+  const int tid = threadIdx.x, r = tid / kWideLanes, sl = tid % kWideLanes;
+  const size_t W3 = (size_t)3 * H * ch, C = (size_t)H * ch;
+  float* P = ws + (size_t)blockIdx.x * kWideRows * T_;
+  float* pr = P + (size_t)r * T_;
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long bh = item / qtiles;
+    const int q0 = (int)(item % qtiles) * kWideRows;
+    const long long b = bh / H;
+    const int h = (int)(bh % H);
+    const T* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
+
+    for (int k0 = 0; k0 < T_; k0 += kWideKeys) {
+      float s[kWideKeys / kWideLanes];
+#pragma unroll
+      for (int i = 0; i < kWideKeys / kWideLanes; ++i) s[i] = 0.f;
+      for (int c0 = 0; c0 < ch; c0 += kWideCh) {
+        __syncthreads();  // the last chunk is consumed
+        for (int i = tid; i < kWideRows * kWideCh; i += kWideThreads) {
+          const int rr = i / kWideCh, cc = i % kWideCh, row = q0 + rr, c = c0 + cc;
+          Qs[rr][cc] = row < T_ && c < ch ? wide_load(base + (size_t)row * W3 + c) : 0.f;
+        }
+        for (int i = tid; i < kWideKeys * kWideCh; i += kWideThreads) {
+          const int j = i / kWideCh, cc = i % kWideCh, key = k0 + j, c = c0 + cc;
+          KVs[j][cc] =
+              key < T_ && c < ch ? wide_load(base + (size_t)key * W3 + ch + c) : 0.f;
+        }
+        __syncthreads();
+        for (int cc = 0; cc < kWideCh; ++cc) {
+          const float qv = Qs[r][cc];
+#pragma unroll
+          for (int i = 0; i < kWideKeys / kWideLanes; ++i)
+            s[i] = fmaf(qv, KVs[sl + kWideLanes * i][cc], s[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kWideKeys / kWideLanes; ++i) {
+        const int key = k0 + sl + kWideLanes * i;
+        if (key < T_) pr[key] = s[i] * scale_log2;
+      }
+    }
+    __syncthreads();  // each row's logits were written by its own 8 lanes
+
+    float mx = -INFINITY;
+    for (int k = sl; k < T_; k += kWideLanes) mx = fmaxf(mx, pr[k]);
+#pragma unroll
+    for (int off = 1; off < kWideLanes; off *= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int k = sl; k < T_; k += kWideLanes) {
+      const float e = exp2f(pr[k] - mx);
+      pr[k] = e;
+      sum += e;
+    }
+#pragma unroll
+    for (int off = 1; off < kWideLanes; off *= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float inv = 1.f / sum;
+    for (int k = sl; k < T_; k += kWideLanes) pr[k] = wide_round(pr[k] * inv, qkv);
+    __syncthreads();
+
+    const int row = q0 + r;
+    for (int c0 = 0; c0 < ch; c0 += kWideCh) {
+      float acc[kWideCh / kWideLanes];
+#pragma unroll
+      for (int u = 0; u < kWideCh / kWideLanes; ++u) acc[u] = 0.f;
+      for (int k0 = 0; k0 < T_; k0 += kWideKeys) {
+        __syncthreads();  // the last tile is consumed
+        for (int i = tid; i < kWideKeys * kWideCh; i += kWideThreads) {
+          const int j = i / kWideCh, cc = i % kWideCh, key = k0 + j, c = c0 + cc;
+          KVs[j][cc] =
+              key < T_ && c < ch ? wide_load(base + (size_t)key * W3 + 2 * ch + c) : 0.f;
+        }
+        for (int i = tid; i < kWideRows * kWideKeys; i += kWideThreads) {
+          const int rr = i / kWideKeys, j = i % kWideKeys, key = k0 + j;
+          Ps[rr][j] = key < T_ ? P[(size_t)rr * T_ + key] : 0.f;
+        }
+        __syncthreads();
+        for (int j = 0; j < kWideKeys; ++j) {
+          const float p = Ps[r][j];
+#pragma unroll
+          for (int u = 0; u < kWideCh / kWideLanes; ++u)
+            acc[u] = fmaf(p, KVs[j][sl + kWideLanes * u], acc[u]);
+        }
+      }
+      if (row < T_) {
+        T* o = out + ((size_t)b * T_ + row) * C + (size_t)h * ch;
+#pragma unroll
+        for (int u = 0; u < kWideCh / kWideLanes; ++u) {
+          const int c = c0 + sl + kWideLanes * u;
+          if (c < ch) wide_store(o + c, acc[u]);
+        }
+      }
+    }
+    __syncthreads();  // the workspace is read before the next item writes it
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* qkv, void* out, float* ws, int ws_blocks, int B,
+                        int T_, int H, int ch, cudaStream_t st) {
+  const int qtiles = (T_ + kWideRows - 1) / kWideRows;
+  const long long items = (long long)B * H * qtiles;
+  const int blocks = (int)(items < ws_blocks ? items : ws_blocks);
+  attn_wide<T><<<blocks, kWideThreads, 0, st>>>(static_cast<const T*>(qkv),
+                                                static_cast<T*>(out), ws, T_, H, ch, items,
+                                                qtiles, kLog2e / sqrtf((float)ch));
+  return cudaGetLastError();
+}
+
 template <typename Kernel, typename T>
 cudaError_t launch_any(Kernel kernel, int rows, int threads, size_t smem, const void* qkv,
                        void* out, int B, int T_, int H, int ch, cudaStream_t st) {
@@ -877,24 +1041,50 @@ cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
   return cudaGetLastError();
 }
 
+// The kernels for widths up to 256 take (batch, head) pairs on grid y, at
+// most 65535 of them: more pairs run as several launches over whole samples.
+cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int ch, int rows,
+                         bool bf16, cudaStream_t st) {
+  const size_t esize = bf16 ? 2 : 4;
+  const int per = 65535 / H;  // samples per launch
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int nb = B - b0 < per ? B - b0 : per;
+    const void* q = static_cast<const char*>(qkv) + (size_t)b0 * T_ * 3 * H * ch * esize;
+    void* o = static_cast<char*>(out) + (size_t)b0 * T_ * H * ch * esize;
+    cudaError_t e;
+    if (ch == 16) e = launch<16>(q, o, nb, T_, H, rows, bf16, st);
+    else if (ch == 32) e = launch<32>(q, o, nb, T_, H, rows, bf16, st);
+    else if (ch == 64) e = launch<64>(q, o, nb, T_, H, rows, bf16, st);
+    else e = bf16 ? launch_bf16_any<16>(q, o, nb, T_, H, ch, st)
+                  : launch_f32_any(q, o, nb, T_, H, ch, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Returns a cudaError_t.  ch is 1 .. 256: 16, 32 and 64 run the tuned kernels
-// with rows (query rows per block) 16, 32, 64 or (bf16 only) 128; every other
-// width runs attn_bf16_any (64 rows per block) or attn_f32_any (16), whatever
-// rows says.  qkv and out must be 16-byte aligned.
+// Returns a cudaError_t.  ch is 16, 32 or 64: the tuned kernels with rows
+// (query rows per block) 16, 32, 64 or (bf16 only) 128; any other ch up to
+// 256 runs attn_bf16_any (64 rows per block) or attn_f32_any (16), whatever
+// rows says; above 256 (or with more than 65535 heads) attn_wide, in
+// ws_blocks blocks, each with 16 * T floats of the workspace ws.  qkv and out
+// must be 16-byte aligned.
 extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
                                             int T, int heads, int ch, int rows,
-                                            int is_bf16, void* stream) {
-  if (B <= 0 || T <= 0 || heads <= 0 || B * heads > 65535 ||
+                                            int is_bf16, void* workspace,
+                                            int ws_blocks, void* stream) {
+  if (B <= 0 || T <= 0 || heads <= 0 || ch <= 0 ||
       (rows != 16 && rows != 32 && rows != 64 && !(is_bf16 && rows == 128)) ||
       (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ch == 16) return (int)launch<16>(qkv, out, B, T, heads, rows, is_bf16, st);
-  if (ch == 32) return (int)launch<32>(qkv, out, B, T, heads, rows, is_bf16, st);
-  if (ch == 64) return (int)launch<64>(qkv, out, B, T, heads, rows, is_bf16, st);
-  if (ch < 1 || ch > kGenMaxCh) return (int)cudaErrorInvalidValue;
-  return (int)(is_bf16 ? launch_bf16_any<16>(qkv, out, B, T, heads, ch, st)
-                       : launch_f32_any(qkv, out, B, T, heads, ch, st));
+  if (ch > kGenMaxCh || heads > 65535) {
+    if (workspace == nullptr || ws_blocks <= 0) return (int)cudaErrorInvalidValue;
+    float* ws = static_cast<float*>(workspace);
+    return (int)(is_bf16 ? launch_wide<__nv_bfloat16>(qkv, out, ws, ws_blocks, B, T, heads,
+                                                      ch, st)
+                         : launch_wide<float>(qkv, out, ws, ws_blocks, B, T, heads, ch, st));
+  }
+  return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, is_bf16, st);
 }

@@ -11,6 +11,13 @@ a centred variance (the plain version two passes; the kernel per-block
 centred sums merged with Chan's formula, one read); bf16 inputs the one-pass
 E[x^2]-mean^2, clamped at 0.  The kernel makes two launches per call.
 
+For an image whose rows are spread over several ranks (spatial
+parallelism) the call splits in two: ``groupnorm_partial_stats`` returns a
+shard's unfinished statistics per (sample, group), bf16 (sum x, sum x^2, n)
+and fp32 (n, mean, M2); the caller gathers the shards' and
+``merge_partial_stats`` joins them in rank order into (mean, rstd);
+``groupnorm_apply_stats`` normalises from those.  Each has a plain version.
+
 ``groupnorm_silu`` runs the plain version for a CPU tensor and the CUDA kernel
 for a CUDA tensor; it never falls back from one to the other.  Where a
 gradient is asked for (grad mode on and an input that requires one), the
@@ -33,7 +40,10 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                raise_on_error, wants_grad)
 
 __all__ = ["groupnorm_silu", "groupnorm_silu_plain", "GroupNormSiLUFunction",
-           "partition_pixels", "thread_layout", "check_inputs"]
+           "partition_pixels", "thread_layout", "check_inputs",
+           "groupnorm_partial_stats", "groupnorm_partial_stats_plain",
+           "groupnorm_apply_stats", "groupnorm_apply_stats_plain",
+           "merge_partial_stats"]
 
 MAX_GROUPS = 64           # csrc/groupnorm.cu kMaxGroups
 MAX_THREADS = 1024        # threads per block
@@ -107,21 +117,27 @@ def thread_layout(c: int, itemsize: int) -> tuple[int, int, int]:
     return vec, nv, rows
 
 
+def _check_x(x: torch.Tensor, num_groups: int) -> tuple[int, int, int]:
+    if x.ndim != 4:
+        raise ValueError(f"groupnorm_silu takes (B, H, W, C), got {tuple(x.shape)}")
+    c = x.shape[-1]
+    if num_groups > MAX_GROUPS or c % num_groups:
+        raise ValueError(f"groupnorm_silu: C={c} with {num_groups} groups "
+                         f"(need C % G == 0 and G <= {MAX_GROUPS})")
+    check_cuda_tensor("x", x, x.device)
+    check_aligned("x", x)
+    return thread_layout(c, x.element_size())
+
+
 def check_inputs(x, scale, bias, film_scale=None, film_shift=None, *,
                  num_groups: int = 32) -> tuple[int, int, int]:
     """Raise unless the kernel takes these arguments (shapes, types,
     contiguity, 16-byte alignment of ``x``); returns ``thread_layout``."""
-    if x.ndim != 4:
-        raise ValueError(f"groupnorm_silu takes (B, H, W, C), got {tuple(x.shape)}")
+    _check_x(x, num_groups)
     b, _, _, c = x.shape
-    if num_groups > MAX_GROUPS or c % num_groups:
-        raise ValueError(f"groupnorm_silu: C={c} with {num_groups} groups "
-                         f"(need C % G == 0 and G <= {MAX_GROUPS})")
     if (film_scale is None) != (film_shift is None):
         raise ValueError("film_scale and film_shift go together")
     dev = x.device
-    check_cuda_tensor("x", x, dev)
-    check_aligned("x", x)
     f32 = (torch.float32,)
     check_cuda_tensor("scale", scale, dev, f32, (c,))
     check_cuda_tensor("bias", bias, dev, f32, (c,))
@@ -224,3 +240,147 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return GroupNormSiLUFunction.apply(x, scale, bias, film_scale, film_shift,
                                            num_groups, eps, do_silu)
     return _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
+
+
+# ---------------------------------------------------------------------------
+# the two halves, for statistics that span shards
+# ---------------------------------------------------------------------------
+
+def groupnorm_partial_stats_plain(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """(B, G, 3) fp32 unfinished statistics of ``x``'s pixels per (sample,
+    group): bf16 (sum x, sum x^2, n), fp32 (n, mean, M2) with M2 the centred
+    sum of squares, as the plain version forms them."""
+    b, c = x.shape[0], x.shape[-1]
+    g = num_groups
+    spatial = tuple(range(1, x.ndim - 1))
+    n = float(math.prod(x.shape[1:-1]) * (c // g))
+    xf = x.float()
+    s1 = xf.sum(dim=spatial).reshape(b, g, c // g).sum(-1)
+    nn = torch.full_like(s1, n)
+    if x.dtype == torch.float32:
+        mean = s1 / n
+        mean_full = mean.repeat_interleave(c // g, dim=-1).reshape(
+            (b,) + (1,) * (x.ndim - 2) + (c,))
+        m2 = (xf - mean_full).square().sum(dim=spatial).reshape(b, g, c // g).sum(-1)
+        return torch.stack([nn, mean, m2], dim=-1)
+    s2 = xf.square().sum(dim=spatial).reshape(b, g, c // g).sum(-1)
+    return torch.stack([s1, s2, nn], dim=-1)
+
+
+def merge_partial_stats(parts: torch.Tensor, is_bf16: bool,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """(R, B, G, 3) partial statistics of R shards -> (B, G, 2) (mean, rstd),
+    joined in shard order: bf16 by sums, fp32 by Chan's formula, as the
+    kernel's last block joins its slices.  No atomics: reruns are
+    bit-identical, and one shard gives the unsharded plain version's values."""
+    if is_bf16:
+        s1, s2, n = parts[0].unbind(-1)
+        for p in parts[1:]:
+            a1, a2, an = p.unbind(-1)
+            s1, s2, n = s1 + a1, s2 + a2, n + an
+        mean = s1 / n
+        var = (s2 / n - mean.square()).clamp_min(0.0)
+    else:
+        n, mean, m2 = parts[0].unbind(-1)
+        for p in parts[1:]:
+            nb, mb, m2b = p.unbind(-1)
+            nt = n + nb
+            d = mb - mean
+            mean = mean + d * (nb / nt)
+            m2 = m2 + m2b + d * d * (n * nb / nt)
+            n = nt
+        var = m2 / n
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=-1)
+
+
+def groupnorm_apply_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                                stats: torch.Tensor,
+                                film_scale: Optional[torch.Tensor] = None,
+                                film_shift: Optional[torch.Tensor] = None, *,
+                                do_silu: bool = True) -> torch.Tensor:
+    """``groupnorm_silu_plain``'s affine, FiLM and SiLU from given (B, G, 2)
+    (mean, rstd)."""
+    dtype = x.dtype
+    b, c = x.shape[0], x.shape[-1]
+    g = stats.shape[1]
+    bshape = (b,) + (1,) * (x.ndim - 2) + (c,)
+    mean, inv = stats[..., 0], stats[..., 1]
+    w = inv.repeat_interleave(c // g, dim=-1) * scale.float()[None]
+    off = bias.float()[None] - mean.repeat_interleave(c // g, dim=-1) * w
+    if film_scale is not None:
+        f = 1.0 + film_scale.float()
+        w = w * f
+        off = off * f + film_shift.float()
+    y = x.float() * w.reshape(bshape) + off.reshape(bshape)
+    if do_silu:
+        y = F.silu(y)
+    return y.to(dtype)
+
+
+def _no_grad_through(name: str, *tensors) -> None:
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: no gradient through the sharded GroupNorm (spatial "
+            "parallelism runs inference only)")
+
+
+def groupnorm_partial_stats(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """x: (B, H, W, C) -> (B, G, 3) fp32 partial statistics
+    (``groupnorm_partial_stats_plain``); one kernel launch on the card."""
+    if x.device.type == "cpu":
+        return groupnorm_partial_stats_plain(x, num_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm_partial_stats: unsupported device {x.device}")
+    _no_grad_through("groupnorm_partial_stats", x)
+    _, _, rows = _check_x(x, num_groups)
+
+    from diffpir_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    b, h, w, c = x.shape
+    slices, per = partition_pixels(b, h * w)
+    dev = x.device
+    stream = current_stream_handle(dev)
+    ws = torch.empty(2 * b * slices * num_groups, dtype=torch.float32, device=dev)
+    out = torch.empty((b, num_groups, 3), dtype=torch.float32, device=dev)
+    rc = lib.diffpir_groupnorm_partial_stats(
+        x.data_ptr(), out.data_ptr(), ws.data_ptr(), _counters(dev, stream, b).data_ptr(),
+        b, h * w, c, num_groups, slices, per, rows, int(x.dtype == torch.bfloat16),
+        stream)
+    raise_on_error("groupnorm_partial_stats", rc)
+    LAUNCHES["groupnorm_partial_stats"] += 1
+    return out
+
+
+def groupnorm_apply_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          stats: torch.Tensor,
+                          film_scale: Optional[torch.Tensor] = None,
+                          film_shift: Optional[torch.Tensor] = None, *,
+                          do_silu: bool = True) -> torch.Tensor:
+    """x normalised with (B, G, 2) fp32 (mean, rstd), then the affine step,
+    optional FiLM and SiLU (``groupnorm_apply_stats_plain``); one kernel
+    launch on the card."""
+    if x.device.type == "cpu":
+        return groupnorm_apply_stats_plain(x, scale, bias, stats, film_scale, film_shift,
+                                           do_silu=do_silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm_apply_stats: unsupported device {x.device}")
+    _no_grad_through("groupnorm_apply_stats", x, scale, bias, film_scale, film_shift)
+    g = stats.shape[1]
+    _, _, rows = check_inputs(x, scale, bias, film_scale, film_shift, num_groups=g)
+    check_cuda_tensor("stats", stats, x.device, (torch.float32,), (x.shape[0], g, 2))
+
+    from diffpir_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    rc = lib.diffpir_groupnorm_apply_stats(
+        x.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        None if film_scale is None else film_scale.data_ptr(),
+        None if film_shift is None else film_shift.data_ptr(), stats.data_ptr(),
+        b, h * w, c, g, rows, int(do_silu), int(x.dtype == torch.bfloat16),
+        current_stream_handle(x.device))
+    raise_on_error("groupnorm_apply_stats", rc)
+    LAUNCHES["groupnorm_apply_stats"] += 1
+    return out

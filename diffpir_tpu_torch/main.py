@@ -17,6 +17,16 @@ in one batch (``Runner.tune_operating_point``), and prints the table.
 (CPU and, on the card, CUDA activity) and writes a Chrome trace to
 ``DIR/trace.json``.  ``main(argv)`` can be called in-process and returns the
 list of result dicts (with ``--tune``, the per-candidate rows).
+
+On a device mesh, one process a rank:
+
+    torchrun --nproc-per-node N -m diffpir_tpu_torch.main --opt ... \
+        --set mesh_shape=[2,2] --set mesh_axes=[data,model]
+
+joins the group ``torchrun`` describes (``parallel.multihost.initialize``:
+NCCL when every rank has a card of its own, gloo when ranks share one), and
+each rank runs on its card (``--cpu``: on the CPU, over gloo).  Rank 0 alone
+prints and saves.
 """
 
 from __future__ import annotations
@@ -62,10 +72,19 @@ def main(argv=None) -> list[dict]:
     args = parse_args(argv)
     from diffpir_tpu_torch import resolve_device
     from diffpir_tpu_torch.config import load_config, parse_overrides
+    from diffpir_tpu_torch.parallel import multihost
     from diffpir_tpu_torch.runner import Runner
 
     device = resolve_device(args.cpu)
+    multihost.initialize(backend="gloo" if args.cpu else None)
+    rank, world = multihost.process_shard_info()
+    if world > 1 and device.type == "cuda":
+        device = multihost.rank_device()
     cfg = load_config(args.opt, parse_overrides(args.set))
+    if rank:
+        # rank 0 alone prints and saves; the others compute the same
+        cfg.save_E = cfg.save_L = cfg.save_LEH = False
+        sys.stdout = open(os.devnull, "w")
 
     if cfg.save_E or cfg.save_L:
         os.makedirs(cfg.E_path, exist_ok=True)

@@ -22,6 +22,18 @@ Numerics carried over:
   backward pass (``torch.utils.checkpoint``, as the JAX package's
   ``nn.remat``); parameter names do not change.
 
+Under a device mesh (``parallel/``) the same modules run sharded, and without
+one they run exactly as before.  Tensor parallelism (``model`` axis,
+``parallel/tp.py::shard_unet_params``): a sharded ResBlock makes C/n
+channels in ``conv1``, normalises them with G/n groups, takes its channels
+of the all-reduced FiLM vector, and all-reduces ``conv2``'s partial sums
+before the bias; a sharded attention block runs heads/n heads and
+all-reduces ``proj``.  Spatial parallelism (``space`` axis, ``UNet.set_mesh``):
+the UNet keeps its rank's rows of the image height; every 3x3 convolution
+first fetches its halo rows; GroupNorm merges its statistics over the axis;
+attention gathers the tokens, runs on all of them and keeps its rows; the
+output rows are gathered at the end.  Resampling stays local.
+
 Activations are (B, H, W, C) tensors, contiguous in that order, which is what
 the GroupNorm and attention kernels take.  A convolution hands cuDNN the
 NCHW view of the same memory (``channels_last``) with a ``channels_last``
@@ -43,10 +55,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from diffpir_tpu_torch.kernels import groupnorm as _gn
 from diffpir_tpu_torch.kernels.attention import (legacy_qkv_attention,
                                                  legacy_qkv_attention_plain)
 from diffpir_tpu_torch.kernels.groupnorm import (groupnorm_silu,
                                                  groupnorm_silu_plain)
+from diffpir_tpu_torch.parallel import collectives as _coll
 
 __all__ = ["UNetConfig", "UNet", "GroupNorm32", "Conv", "Dense", "ResBlock",
            "AttentionBlock", "timestep_embedding", "KERNEL_ROUTES"]
@@ -85,14 +99,26 @@ class GroupNorm32(nn.Module):
         self.fuse_silu = fuse_silu
         self.num_groups = num_groups
         self.kernels = _check_route(kernels)
+        self.space = None   # a mesh whose "space" axis splits the image height
 
     def forward(self, x: torch.Tensor,
                 film: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         fs = fb = None
         if film is not None:
             fs, fb = (f.float().contiguous() for f in film)
-        fn = groupnorm_silu if self.kernels == "cuda" else groupnorm_silu_plain
-        return fn(x.contiguous(), self.weight, self.bias, fs, fb,
+        x = x.contiguous()
+        cuda = self.kernels == "cuda"
+        if self.space is not None:
+            # the statistics span the shards: partial sums here, merged in
+            # rank order over the axis, then the normalisation
+            partial = (_gn.groupnorm_partial_stats if cuda
+                       else _gn.groupnorm_partial_stats_plain)(x, self.num_groups)
+            parts = _coll.all_gather(partial[None], self.space, "space")
+            stats = _gn.merge_partial_stats(parts, x.dtype == torch.bfloat16)
+            apply = _gn.groupnorm_apply_stats if cuda else _gn.groupnorm_apply_stats_plain
+            return apply(x, self.weight, self.bias, stats, fs, fb, do_silu=self.fuse_silu)
+        fn = groupnorm_silu if cuda else groupnorm_silu_plain
+        return fn(x, self.weight, self.bias, fs, fb,
                   num_groups=self.num_groups, do_silu=self.fuse_silu)
 
 
@@ -106,18 +132,38 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride = stride
         self.padding = kernel // 2
+        self.space = None   # a mesh whose "space" axis splits the image height
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype), self.stride, self.padding)
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``bias=False`` leaves the bias out (a row-parallel partial sum)."""
+        b = self.bias.to(x.dtype) if bias else None
+        k, pad = self.weight.shape[2], self.padding
+        if self.space is not None and k > 1:
+            # the rows this rank's outputs read from its neighbours' shards:
+            # pad above, and below what the last window reaches past the shard
+            below = max(0, k - 1 - pad - (self.stride - 1))
+            x = _coll.halo_rows(x, self.space, "space", pad, below)
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
+                         self.stride, (0, pad))
+        else:
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
+                         self.stride, pad)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` whose weights are cast to the input's type at each call."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``bias=False`` leaves the bias out (a row-parallel partial sum)."""
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype) if bias else None)
+
+
+def _row_parallel(layer, x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """A row-parallel layer: this rank's partial product, the sum over the
+    axis, then the bias once."""
+    y = _coll.all_reduce_sum(layer(x, bias=False), mesh, axis)
+    return y + layer.bias.to(y.dtype)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -167,6 +213,33 @@ class ResBlock(nn.Module):
         self.norm2 = GroupNorm32(cout, fuse_silu=True, kernels=kernels)
         self.conv2 = Conv(cout, cout)
         self.skip = Conv(cin, cout, 1) if cin != cout else None
+        self.tp = None            # (mesh, axis) once parallel/tp.py shards the block
+        self.emb_sharded = False
+
+    def set_tensor_parallel(self, mesh, axis: str, emb_sharded: bool) -> None:
+        """Run as this rank's shard over ``axis`` (``parallel/tp.py`` has
+        sliced the parameters): C/n channels from ``conv1``, G/n groups."""
+        self.tp = (mesh, axis)
+        self.emb_sharded = emb_sharded
+        self.norm2.num_groups = 32 // mesh.axis_size(axis)
+
+    def _film(self, emb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The FiLM vector; under tensor parallelism this rank's channels of
+        each half of the full (B, 2C) vector (or of the full (B, C))."""
+        e = F.silu(emb)
+        if self.tp is None:
+            return self.emb_proj(e).to(dtype)
+        mesh, axis = self.tp
+        n, r = mesh.axis_size(axis), mesh.axis_index(axis)
+        if self.emb_sharded:
+            k = e.shape[-1] // n
+            full = _row_parallel(self.emb_proj, e[:, r * k:(r + 1) * k], mesh, axis)
+        else:
+            full = self.emb_proj(e)
+        full = full.to(dtype)
+        halves = full.chunk(2, dim=-1) if self.use_scale_shift_norm else (full,)
+        c = halves[0].shape[-1] // n
+        return torch.cat([v[:, r * c:(r + 1) * c] for v in halves], dim=-1)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.norm1(x)
@@ -175,13 +248,13 @@ class ResBlock(nn.Module):
         elif self.down:
             h, x = _avgpool2x(h), _avgpool2x(x)
         h = self.conv1(h)
-        emb_out = self.emb_proj(F.silu(emb)).to(h.dtype)
+        emb_out = self._film(emb, h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)
             h = self.norm2(h, film=(scale, shift))
         else:
             h = self.norm2(h + emb_out[:, None, None, :])
-        h = self.conv2(h)
+        h = self.conv2(h) if self.tp is None else _row_parallel(self.conv2, h, *self.tp)
         if self.skip is not None:
             x = self.skip(x)
         return x + h
@@ -197,14 +270,31 @@ class AttentionBlock(nn.Module):
         self.norm = GroupNorm32(channels, kernels=kernels)
         self.qkv = Dense(channels, 3 * channels)
         self.proj = Dense(channels, channels)
+        self.tp = None      # (mesh, axis) once parallel/tp.py shards the heads
+        self.space = None   # a mesh whose "space" axis splits the image height
+
+    def set_tensor_parallel(self, mesh, axis: str, emb_sharded: bool = False) -> None:
+        """Run heads/n heads as this rank's shard over ``axis``."""
+        self.tp = (mesh, axis)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
         h = self.norm(x).reshape(b, hh * ww, c)
         qkv = self.qkv(h).contiguous()
+        heads = self.num_heads
+        if self.tp is not None:
+            heads //= self.tp[0].axis_size(self.tp[1])
+        if self.space is not None:
+            # tokens are H-major, so the shards are contiguous token blocks:
+            # attend over all of them and keep this rank's query rows
+            qkv = _coll.all_gather(qkv, self.space, "space", dim=1)
         attn = (legacy_qkv_attention if self.kernels == "cuda"
                 else legacy_qkv_attention_plain)
-        a = self.proj(attn(qkv, self.num_heads))
+        a = attn(qkv, heads)
+        if self.space is not None:
+            r = self.space.axis_index("space")
+            a = a[:, r * hh * ww:(r + 1) * hh * ww].contiguous()
+        a = self.proj(a) if self.tp is None else _row_parallel(self.proj, a, *self.tp)
         return x + a.reshape(b, hh, ww, c)
 
 
@@ -338,6 +428,19 @@ class UNet(nn.Module):
         for m in self.modules():
             if isinstance(m, (Conv, nn.Linear)):
                 m.to(dtype if param_dtype is None else param_dtype)
+        self.space = None
+
+    def set_mesh(self, mesh) -> "UNet":
+        """Split the image height over ``mesh``'s ``space`` axis (when it has
+        one of more than one rank): the forward then takes and returns whole
+        images, and runs on this rank's rows in between.  Tensor parallelism
+        is set by ``parallel/tp.py::shard_unet_params``."""
+        space = mesh if mesh is not None and mesh.axis_size("space") > 1 else None
+        self.space = space
+        for m in self.modules():
+            if isinstance(m, (Conv, GroupNorm32, AttentionBlock)):
+                m.space = space
+        return self
 
     def _layer(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         layer = getattr(self, name)
@@ -356,6 +459,17 @@ class UNet(nn.Module):
         emb = self.time_embed_2(F.silu(self.time_embed_0(emb)))
         if y is not None:
             emb = emb + self.label_emb(y).to(self.dtype)
+        if self.space is not None:
+            n, r = self.space.axis_size("space"), self.space.axis_index("space")
+            depth = 2 ** (len(self.cfg.channel_mult) - 1)
+            height = x.shape[1]
+            if height % (n * depth):
+                raise ValueError(
+                    f"image height {height} over {n} space ranks: each rank's "
+                    f"{height / n:g} rows must stay even down all "
+                    f"{len(self.cfg.channel_mult)} levels (a multiple of {depth})")
+            rows = height // n
+            x = x[:, r * rows:(r + 1) * rows]
         h = x.to(self.dtype)
         hs = []
         for names in self._inputs:
@@ -368,4 +482,7 @@ class UNet(nn.Module):
             h = torch.cat([h, hs.pop()], dim=-1)
             for name in names:
                 h = self._layer(name, h, emb)
-        return self.out_conv(self.out_norm(h))
+        out = self.out_conv(self.out_norm(h))
+        if self.space is not None:
+            out = _coll.all_gather(out, self.space, "space", dim=1)
+        return out

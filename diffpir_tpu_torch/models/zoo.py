@@ -35,7 +35,8 @@ from diffpir_tpu_torch.models.unet import UNet, UNetConfig
 __all__ = ["MODEL_ZOO_CONFIGS", "TINY_TEST_CONFIG", "DEMO_HQ_CONFIG",
            "DEMO256_CONFIG", "TINY_GRAY_CONFIG", "model_config_for",
            "load_params_npz", "save_params_npz", "flax_to_torch", "torch_to_flax",
-           "init_random_", "init_train_", "resolve_model", "ResolvedModel"]
+           "init_random_", "init_train_", "resolve_model", "ResolvedModel",
+           "weights_path", "create_model_and_diffusion"]
 
 log = logging.getLogger(__name__)
 
@@ -212,6 +213,27 @@ def init_random_(model: UNet, seed: int) -> UNet:
     return model
 
 
+_DEMO_DIR = os.path.join(_REPO, "assets", "demo")
+
+
+def weights_path(model_name: str, model_zoo: str = "model_zoo"):
+    """The file ``resolve_model`` loads ``model_name``'s weights from, or
+    None for random weights: ``<model_zoo>/<name>.flax.npz`` unless a newer
+    ``<model_zoo>/<name>.pt`` sits beside it, then the ``.pt``, then the demo
+    prior under ``assets/demo`` (``diffpir_tpu/models/zoo.py:134``)."""
+    npz_path = os.path.join(model_zoo, f"{model_name}.flax.npz")
+    pt_path = os.path.join(model_zoo, f"{model_name}.pt")
+    # the cache holds only while it is at least as new as the checkpoint
+    if os.path.exists(npz_path) and not (
+            os.path.exists(pt_path)
+            and os.path.getmtime(pt_path) > os.path.getmtime(npz_path)):
+        return npz_path
+    if os.path.exists(pt_path):
+        return pt_path
+    demo_path = os.path.join(_DEMO_DIR, f"{model_name}.flax.npz")
+    return demo_path if os.path.exists(demo_path) else None
+
+
 class ResolvedModel(NamedTuple):
     """The model, ready on its device, and where its weights came from:
     "cache" (``<model_zoo>/<name>.flax.npz``), "checkpoint"
@@ -235,21 +257,14 @@ def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
         device = resolve_device(cpu=False)
     cfg = model_config_for(model_name)
     model = UNet(cfg, dtype=dtype, kernels=kernels)
-    npz_path = os.path.join(model_zoo, f"{model_name}.flax.npz")
-    pt_path = os.path.join(model_zoo, f"{model_name}.pt")
-    demo_path = os.path.join(_REPO, "assets", "demo", f"{model_name}.flax.npz")
-    # the cache holds only while it is at least as new as the checkpoint
-    if os.path.exists(npz_path) and not (
-            os.path.exists(pt_path)
-            and os.path.getmtime(pt_path) > os.path.getmtime(npz_path)):
-        model.load_state_dict(flax_to_torch(load_params_npz(npz_path)))
-        provenance = "cache"
-    elif os.path.exists(pt_path):
-        model.load_state_dict(load_torch_checkpoint(pt_path))
+    path = weights_path(model_name, model_zoo)
+    if path is not None and path.endswith(".pt"):
+        model.load_state_dict(load_torch_checkpoint(path))
         provenance = "checkpoint"
-    elif os.path.exists(demo_path):
-        model.load_state_dict(flax_to_torch(load_params_npz(demo_path)))
-        provenance = "demo"
+    elif path is not None:
+        model.load_state_dict(flax_to_torch(load_params_npz(path)))
+        provenance = ("demo" if path == os.path.join(_DEMO_DIR, f"{model_name}.flax.npz")
+                      else "cache")
     else:
         log.warning("no weights for %r under %s or assets/demo — using RANDOM "
                     "weights (restorations will be meaningless)", model_name,
@@ -257,3 +272,30 @@ def resolve_model(model_name: str, model_zoo: str = "model_zoo", *,
         init_random_(model, init_seed)
         provenance = "random"
     return ResolvedModel(model.to(device).eval().requires_grad_(False), provenance)
+
+
+def create_model_and_diffusion(model_name: str, model_zoo: str = "model_zoo", *,
+                               num_timesteps: int = 1000,
+                               noise_schedule: str = "linear",
+                               timestep_respacing=None,
+                               dtype: torch.dtype = torch.float32,
+                               device: torch.device | str | None = None,
+                               kernels: str = "cuda"):
+    """(model, Diffusion, timestep_map): the counterpart of the JAX package's
+    factory (``diffpir_tpu/models/zoo.py:233``; reference
+    ``script_util.create_model_and_diffusion``), whose (module, params) pair
+    is one module here.  ``timestep_respacing``: None, "ddimN" or section
+    counts (``schedule.space_timesteps``); learned-range epsilon diffusion,
+    as the published checkpoints."""
+    from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
+    from diffpir_tpu_torch.schedule import NoiseSchedule, space_timesteps
+
+    model, _prov = resolve_model(model_name, model_zoo, dtype=dtype, device=device,
+                                 kernels=kernels)
+    sched = NoiseSchedule.named(noise_schedule, num_timesteps)
+    timestep_map = None
+    if timestep_respacing:
+        keep = space_timesteps(num_timesteps, timestep_respacing)
+        sched, timestep_map = sched.respaced(sorted(keep))
+    diffusion = Diffusion(sched, ModelMeanType.EPSILON, ModelVarType.LEARNED_RANGE)
+    return model, diffusion, timestep_map

@@ -20,6 +20,17 @@ Copies of ``diffpir_tpu/ops/degrade.py``:
                                   ``utils/resample.py`` (Pillow's line,
                                   Gaussian blur and LANCZOS in numpy), equal
                                   to the JAX package's PSF bit for bit
+  * ``fspecial_laplacian``/``_average``/``_prewitt``/``_sobel`` and the
+    ``fspecial`` factory  == ``utils/utils_deblur.py:502-547``
+  * ``get_rho_sigma``          == ``utils/utils_inpaint.py:15-25``
+  * ``shepard_initialize``     == ``utils/utils_inpaint.py:28-63`` (vectorised)
+  * ``trajectory_psf``         == ``utils/utils_deblur.py:556-632``: the same
+                                  numpy draws in the same order as the JAX
+                                  package's, so a seed gives its kernel
+  * ``blur_circular``          == ``scipy.ndimage.convolve(..., mode='wrap')``
+                                  (``main_ddpir.py:99``), spectral, on the
+                                  tensor's device
+  * ``add_awgn``               == ``main_ddpir.py:112-114``
 """
 
 from __future__ import annotations
@@ -32,8 +43,10 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["box_mask", "random_mask", "make_mask", "fspecial_gaussian",
-           "gaussian_psf", "motion_psf", "shift_pixel", "classical_degradation",
-           "blur_reflect"]
+           "fspecial_laplacian", "fspecial_average", "fspecial_prewitt",
+           "fspecial_sobel", "fspecial", "get_rho_sigma", "shepard_initialize",
+           "gaussian_psf", "motion_psf", "trajectory_psf", "shift_pixel",
+           "classical_degradation", "blur_circular", "blur_reflect", "add_awgn"]
 
 
 def box_mask(image_size=256, mask_len_range=(128, 129), margin=(16, 16),
@@ -217,3 +230,161 @@ def blur_reflect(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     weight = k[:, None].repeat_interleave(c, dim=0)          # (B*C, 1, kh, kw)
     y = F.conv2d(xp.reshape(1, b * c, *xp.shape[2:]), weight, groups=b * c)
     return y.reshape(b, c, *y.shape[2:]).permute(0, 2, 3, 1)
+
+
+def fspecial_laplacian(alpha: float) -> np.ndarray:
+    """MATLAB fspecial('laplacian', alpha) (reference ``utils_deblur.py:502-508``)."""
+    alpha = max(0.0, min(alpha, 1.0))
+    h1 = alpha / (alpha + 1)
+    h2 = (1 - alpha) / (alpha + 1)
+    return np.array([[h1, h2, h1], [h2, -4 / (alpha + 1), h2], [h1, h2, h1]])
+
+
+def fspecial_average(hsize: int = 3) -> np.ndarray:
+    return np.ones((hsize, hsize)) / hsize**2
+
+
+def fspecial_prewitt() -> np.ndarray:
+    return np.array([[1, 1, 1], [0, 0, 0], [-1, -1, -1]], dtype=np.float64)
+
+
+def fspecial_sobel() -> np.ndarray:
+    return np.array([[1, 2, 1], [0, 0, 0], [-1, -2, -1]], dtype=np.float64)
+
+
+def fspecial(filter_type: str, *args, **kwargs) -> np.ndarray:
+    """MATLAB-style filter factory (reference ``utils_deblur.py:527-547``)."""
+    table = {"gaussian": fspecial_gaussian, "laplacian": fspecial_laplacian,
+             "average": fspecial_average, "prewitt": fspecial_prewitt,
+             "sobel": fspecial_sobel}
+    return table[filter_type](*args, **kwargs)
+
+
+def get_rho_sigma(sigma: float = 2.55 / 255, iter_num: int = 15,
+                  model_sigma2: float = 2.55):
+    """DPIR rho/sigma log-schedule (reference ``utils_inpaint.py:15-25``)."""
+    model_sigma1 = 49.0
+    sigmas = np.logspace(np.log10(model_sigma1), np.log10(model_sigma2),
+                         iter_num) / 255.0
+    rhos = [(sigma**2) / (s**2) / 3 for s in sigmas]
+    return rhos, sigmas
+
+
+def shepard_initialize(image: np.ndarray, measurement_mask: np.ndarray,
+                       window: int = 5, p: int = 2) -> np.ndarray:
+    """Inverse-distance-weighted (Shepard) inpainting initialisation: each
+    unobserved pixel becomes the IDW average of the observed pixels in its
+    (window x window) neighbourhood, weights 1/(|di|^p + |dj|^p)."""
+    from scipy.signal import convolve2d
+
+    img = image.astype(np.float64)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    m = measurement_mask.astype(np.float64)
+    wing = window // 2
+    # the weight stencil over offsets; the centre is left out (an unobserved
+    # pixel has nothing at distance 0)
+    ii, jj = np.meshgrid(np.arange(-wing, wing + 1), np.arange(-wing, wing + 1),
+                         indexing="ij")
+    wgt = np.zeros_like(ii, dtype=np.float64)
+    nz = (ii != 0) | (jj != 0)
+    wgt[nz] = 1.0 / (np.abs(ii[nz]) ** p + np.abs(jj[nz]) ** p)
+    denom = convolve2d(m, wgt, mode="same")
+    out = img.copy()
+    for c in range(img.shape[-1]):
+        num = convolve2d(img[:, :, c] * m, wgt, mode="same")
+        fill = np.divide(num, denom, out=np.zeros_like(num), where=denom > 0)
+        out[:, :, c] = np.where(m > 0, img[:, :, c], fill)
+    return out if image.ndim == 3 else out[:, :, 0]
+
+
+def trajectory_psf(h: int = 37, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Random camera-shake kernel from a 3-D random trajectory (reference
+    ``blurkernel_synthesis``, ``utils_deblur.py:556-623``): random rotational
+    and translational impulses integrated, the projected path histogrammed,
+    smoothed by a 3x3 Gaussian and centre-padded to (h, h)."""
+    rng = rng or np.random.default_rng()
+    T = 150
+    x = np.zeros((3, T))
+    v = rng.standard_normal((3, T))
+    r = np.zeros((3, T))
+    trr = 2 * math.pi / T
+    for t in range(1, T):
+        f_rot = rng.standard_normal(3) / (t + 1) + r[:, t - 1]
+        f_trans = rng.standard_normal(3) / (t + 1)
+        r[:, t] = r[:, t - 1] + trr * f_rot
+        v[:, t] = v[:, t - 1] + f_trans
+        st = _rot3d(v[:, t], r[:, t])
+        x[:, t] = x[:, t - 1] + st
+    k = None
+    while k is None:
+        k = _kernel_from_trajectory(x, rng)
+    pad0 = (h - k.shape[0]) // 2
+    pad1 = (h - k.shape[1]) // 2
+    if pad0 < 0 or pad1 < 0:
+        k = k[:h, :h]
+    else:
+        k = np.pad(k, ((pad0, h - k.shape[0] - pad0), (pad1, h - k.shape[1] - pad1)))
+    return k / k.sum()
+
+
+def _rot3d(x: np.ndarray, r: np.ndarray) -> np.ndarray:
+    cx, sx = math.cos(r[0]), math.sin(r[0])
+    cy, sy = math.cos(r[1]), math.sin(r[1])
+    cz, sz = math.cos(r[2]), math.sin(r[2])
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx @ x
+
+
+def _kernel_from_trajectory(x: np.ndarray, rng: np.random.Generator) -> Optional[np.ndarray]:
+    from scipy.signal import convolve2d
+
+    h = 5 - math.log(rng.uniform()) / 0.15
+    h = int(round(min(h, 27.0)))
+    h = h + 1 - h % 2
+    w = h
+    k = np.zeros((h, w))
+    xmin, xmax = x[0].min(), x[0].max()
+    ymin, ymax = x[1].min(), x[1].max()
+    xthr = np.arange(xmin, xmax, (xmax - xmin) / w)
+    ythr = np.arange(ymin, ymax, (ymax - ymin) / h)
+    for i in range(1, xthr.size):
+        for j in range(1, ythr.size):
+            idx = ((x[0] >= xthr[i - 1]) & (x[0] < xthr[i]) &
+                   (x[1] >= ythr[j - 1]) & (x[1] < ythr[j]))
+            k[i - 1, j - 1] = idx.sum()
+    if k.sum() == 0:
+        return None
+    k = k / k.sum()
+    k = convolve2d(k, fspecial_gaussian(3, 1), "same")
+    return k / k.sum()
+
+
+def blur_circular(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Circular (wrap) convolution of NHWC ``x`` with (B, kh, kw) kernels,
+    spectral, on ``x``'s device: ``scipy.ndimage.convolve(img, k,
+    mode='wrap')`` for odd-sized kernels, the degradation the FFT prox
+    assumes (``main_ddpir.py:98-99``)."""
+    from diffpir_tpu_torch.ops.fft_prox import psf_to_otf
+
+    H, W = x.shape[1:3]
+    otf = psf_to_otf(k.to(x.device), (H, W))[:, :, :, None]      # (B, H, W, 1)
+    X = torch.fft.fft2(x.float(), dim=(1, 2))
+    return torch.fft.ifft2(X * otf, dim=(1, 2)).real
+
+
+def add_awgn(img01: np.ndarray, noise_level: float,
+             rng: Optional[np.random.Generator] = None,
+             legacy_seed: Optional[int] = None) -> np.ndarray:
+    """AWGN of standard deviation ``noise_level`` on a [0, 1] image: the
+    reference's N(0, 2 sigma) in [-1, 1] (``main_ddpir.py:112-114``).
+    ``legacy_seed`` reproduces the reference's ``np.random.seed`` stream."""
+    if legacy_seed is not None:
+        np.random.seed(legacy_seed)
+        x = img01 * 2 - 1
+        x = x + np.random.normal(0, noise_level * 2, img01.shape)
+        return x / 2 + 0.5
+    rng = rng or np.random.default_rng()
+    return img01 + rng.normal(0, noise_level, img01.shape)

@@ -17,8 +17,21 @@ are written as PNGs under ``results/<result_name>/`` when saving.
 ``calc_LPIPS`` and ``calc_FID`` score each batch with ``metrics.make_lpips``
 and ``metrics.FidScorer`` on the runner's device (``lpips_weights``,
 ``fid_weights``).  ``evaluate`` dispatches batch i+1 before it fetches batch
-i (``overlap_dispatch``).  Still queued (ROADMAP.md queue A): the device mesh
-and AOT export.
+i (``overlap_dispatch``).
+
+The device mesh (``diffpir_tpu/runner.py:134-180, 388-431``): under a
+``torch.distributed`` group of more than one rank, ``mesh_shape`` and
+``mesh_axes`` build a mesh (``parallel/mesh.py``) of ``data`` (each data rank
+restores its rows of the global batch, with its per-sample lambda and zeta;
+the outputs are gathered), ``model`` (Megatron tensor parallelism,
+``parallel/tp.py``) and ``space`` (the UNet splits the image height; the
+trajectory state, proxes and resizers stay whole).  Every noise draw has the
+global batch's shape from the same generator and is sliced to the rank's
+rows, so a sharded trajectory sees the unsharded one's noise.
+``lower_restore`` traces a restore on the ``meta`` device and reports this
+rank's parameter bytes, activation peaks and collectives; ``dryrun_restore``
+runs the JAX package's mesh dry run.  Still queued (ROADMAP.md queue A item
+9): AOT export, and with it the dry run's mesh-bundle stage.
 """
 
 from __future__ import annotations
@@ -30,14 +43,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffpir_tpu_torch import inference, resolve_device
 from diffpir_tpu_torch.config import TaskConfig
 from diffpir_tpu_torch.data import Batch, make_batches, prepare_images
 from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
 from diffpir_tpu_torch.guidance import dps_sample, make_degrade_op, make_grad_prox
-from diffpir_tpu_torch.models.zoo import resolve_model
+from diffpir_tpu_torch.models.zoo import model_config_for, resolve_model
+from diffpir_tpu_torch.models.unet import UNet
 from diffpir_tpu_torch.ops.fft_prox import precompute
+from diffpir_tpu_torch.parallel import collectives as coll
+from diffpir_tpu_torch.parallel.mesh import abstract_mesh, make_mesh, shard_batch
 from diffpir_tpu_torch.sampler import (diffpir_sample, generator_noise, init_x,
                                        make_cubic_sr_prox, make_denoiser,
                                        make_fft_prox, make_inpaint_prox, model_fn,
@@ -45,7 +62,8 @@ from diffpir_tpu_torch.sampler import (diffpir_sample, generator_noise, init_x,
 from diffpir_tpu_torch.schedule import NoiseSchedule, build_plan, make_progress_slots
 from diffpir_tpu_torch.utils import image as im
 
-__all__ = ["Runner", "reference_sweep", "setup_logger", "overlap_dispatch"]
+__all__ = ["Runner", "reference_sweep", "setup_logger", "overlap_dispatch",
+           "dryrun_restore"]
 
 
 def overlap_dispatch(items, dispatch, consume) -> None:
@@ -97,13 +115,6 @@ def reference_sweep(cfg: TaskConfig) -> list[tuple[float, float]]:
     return [(cfg.lambda_, cfg.zeta)]
 
 
-def _check_supported(cfg: TaskConfig) -> None:
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "not ported to diffpir_tpu_torch yet (ROADMAP.md queue A: the device "
-            "mesh, parallel/): mesh_shape")
-
-
 def leh_montage(batch: Batch, x0: np.ndarray, sf: int) -> np.ndarray:
     """The L|E|H montage of ``save_LEH`` (``diffpir_tpu/runner.py:572-589``;
     reference ``main_ddpir_sisr.py:440-451``): the observation upscaled by
@@ -125,6 +136,14 @@ def leh_montage(batch: Batch, x0: np.ndarray, sf: int) -> np.ndarray:
     return np.concatenate([L_up, x0[:nb], gt], axis=2)
 
 
+def _mesh_axes(cfg: TaskConfig) -> tuple:
+    shape = None if cfg.mesh_shape is None else tuple(cfg.mesh_shape)
+    if cfg.mesh_axes is not None:
+        return tuple(cfg.mesh_axes)
+    # 1-D = data parallelism, 2-D [D, M] = data x Megatron tensor parallelism
+    return ("data",) if shape is None or len(shape) == 1 else ("data", "model")
+
+
 class Runner:
     """Bind config + model once; restore batches / run full evaluations.
 
@@ -132,13 +151,24 @@ class Runner:
     ``device="cpu"`` to run on the CPU.  ``kernels="plain"`` runs the UNet's
     GroupNorm and attention through their plain PyTorch versions, to compare
     them with the CUDA kernels.
+
+    ``use_mesh``: under a process group of more than one rank, build the
+    config's mesh (by default 1-D data parallelism over every rank); with no
+    group, or a group of one, there is no mesh.  ``abstract_params=True``
+    builds the model on the ``meta`` device, sharded under the config's mesh
+    as rank 0 of it (no process group needed): nothing is allocated, and
+    only ``lower_restore`` runs.
     """
 
     def __init__(self, cfg: TaskConfig, *, device: Optional[torch.device | str] = None,
-                 kernels: str = "cuda"):
-        _check_supported(cfg)
+                 kernels: str = "cuda", use_mesh: bool = True,
+                 abstract_params: bool = False):
         self.cfg = cfg
-        self.device = resolve_device(cpu=False) if device is None else torch.device(device)
+        if abstract_params:
+            self.device = torch.device("meta")
+        else:
+            self.device = (resolve_device(cpu=False) if device is None
+                           else torch.device(device))
         self.schedule = NoiseSchedule.linear(
             cfg.beta_start, cfg.beta_end, cfg.num_train_timesteps)
         sigma_start = cfg.t_start_sigma
@@ -162,9 +192,41 @@ class Runner:
             # would otherwise run fp32 convolutions in TF32
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.model, self.weights_provenance = resolve_model(
-            cfg.model_name, cfg.model_zoo, dtype=self.dtype, device=self.device,
-            kernels=kernels)
+        self.mesh = None
+        self.mesh_axes: tuple = ()
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if use_mesh and (world > 1 or (abstract_params and cfg.mesh_shape is not None)):
+            axes = _mesh_axes(cfg)
+            shape = None if cfg.mesh_shape is None else tuple(cfg.mesh_shape)
+            self.mesh = (abstract_mesh(shape, axes) if abstract_params
+                         else make_mesh(shape, axes))
+            self.mesh_axes = axes
+        if abstract_params:
+            # the wrappers take no meta tensor: the plain versions give the
+            # shapes
+            with torch.device("meta"):
+                self.model = UNet(model_config_for(cfg.model_name), dtype=self.dtype,
+                                  kernels="plain")
+            self.weights_provenance = "abstract"
+        else:
+            self.model, self.weights_provenance = resolve_model(
+                cfg.model_name, cfg.model_zoo, dtype=self.dtype, device=self.device,
+                kernels=kernels)
+        if self.mesh is not None:
+            if self.mesh.axis_size("model") > 1:
+                # Megatron-style parameter sharding: the 553M flagship no
+                # longer has to fit one card
+                from diffpir_tpu_torch.parallel.tp import shard_unet_params
+
+                shard_unet_params(self.model, self.mesh)
+            self.model.set_mesh(self.mesh)
+            if (cfg.generate_mode == "DPS_y0" and cfg.model_output_type != "pred_x_prev"
+                    and (self.mesh.axis_size("model") > 1
+                         or self.mesh.axis_size("space") > 1)):
+                raise NotImplementedError(
+                    "DPS_y0 differentiates through the UNet, and the collectives of "
+                    "the model and space axes carry no gradient; run DPS_y0 under "
+                    "data parallelism only")
         self.den = make_denoiser(self._test_mode_model(), self.schedule,
                                  compute_dtype=self.dtype)
         self.diffusion = Diffusion(self.schedule, ModelMeanType.EPSILON,
@@ -232,20 +294,53 @@ class Runner:
         is diffused to t_start (the shifted upscale of sr classical,
         ``main_ddpir_sisr.py:243-248``).  Noise comes from a
         ``torch.Generator`` seeded with ``seed`` unless ``noise`` is given
-        (``sampler``; the initial draw is ``which="init"``)."""
+        (``sampler``; the initial draw is ``which="init"``).
+
+        Under a mesh with a ``data`` axis, ``y`` (and every per-sample input)
+        is the global batch: this rank restores its rows, with the global
+        draws of ``noise`` sliced to them, and the result is gathered, so
+        every rank returns the whole batch."""
+        b = y.shape[0]
+        if np.ndim(lambda_) == 1 or np.ndim(zeta) == 1:
+            lambda_ = np.broadcast_to(np.asarray(lambda_, np.float32), (b,)).copy()
+            zeta = np.broadcast_to(np.asarray(zeta, np.float32), (b,)).copy()
+        if noise is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            noise = generator_noise(gen, self.device)
+        mesh = self.mesh
+        n_data = 1 if mesh is None else mesh.axis_size("data")
+        if n_data == 1:
+            return self._restore_rows(y, mask, lambda_, zeta, noise, kernel, init)
+        if b % n_data:
+            raise ValueError(f"a batch of {b} does not split over {n_data} data ranks; "
+                             "pad it (data.make_batches(..., pad_to_batch=True))")
+        global_noise = noise
+        r, per = mesh.axis_index("data"), b // n_data
+
+        def noise(i, u, which, shape):
+            # the global batch's draw, this rank's rows of it
+            return global_noise(i, u, which, (b,) + tuple(shape[1:]))[r * per:(r + 1) * per]
+
+        rows = lambda a: None if a is None else shard_batch(a, mesh, "data")  # noqa: E731
+        out = self._restore_rows(rows(y), rows(mask), rows(lambda_) if np.ndim(lambda_) else
+                                 lambda_, rows(zeta) if np.ndim(zeta) else zeta, noise,
+                                 rows(kernel), rows(init))
+        if isinstance(out, tuple):  # (x, frames (slots, B, ...))
+            return (coll.all_gather(out[0], mesh, "data", 0),
+                    coll.all_gather(out[1], mesh, "data", 1))
+        return coll.all_gather(out, mesh, "data", 0)
+
+    def _restore_rows(self, y, mask, lambda_, zeta, noise, kernel, init):
+        """``restore`` of the rows this rank holds (all of them without a
+        ``data`` axis)."""
         cfg = self.cfg
         b, h, w, c = y.shape
         lam_scale = None
         if np.ndim(lambda_) == 1 or np.ndim(zeta) == 1:
-            lambda_ = np.broadcast_to(np.asarray(lambda_, np.float32), (b,)).copy()
-            zeta = np.broadcast_to(np.asarray(zeta, np.float32), (b,)).copy()
             lam_scale = lambda_
             plan = self._plan(1.0)
         else:
             plan = self._plan(lambda_)
-        if noise is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            noise = generator_noise(gen, self.device)
         sa0 = float(self.schedule.sqrt_alphas_cumprod[self.t_start])
         s1m0 = float(np.sqrt(1 - self.schedule.alphas_cumprod[self.t_start]))
         up = cfg.sf if cfg.task == "sr" else 1
@@ -267,9 +362,14 @@ class Runner:
         if cfg.generate_mode in ("DPS_y0", "DPS_yt"):
             op = make_degrade_op(cfg.task, kernel=kernel, hr_hw=(h * up, w * up),
                                  sf=cfg.sf)
+            batch_sum = None
+            if self.mesh is not None and self.mesh.axis_size("data") > 1:
+                # DPS_y0's step is the gradient of the whole batch's residual
+                # norm: its square is summed over the data ranks
+                batch_sum = lambda v: coll.all_reduce_sum(v, self.mesh, "data")  # noqa: E731
             return dps_sample(self.diffusion, model_fn(self.den), op, plan, x,
                               noise=noise, mode=cfg.generate_mode, task=cfg.task,
-                              y=y, lambda_=lambda_)
+                              y=y, lambda_=lambda_, batch_sum=batch_sum)
         slots = make_progress_slots(plan.n_steps) if cfg.log_process else None
         prox = self.make_prox(y, kernel, mask)
         with torch.no_grad():
@@ -285,6 +385,9 @@ class Runner:
         ``(x, frames)`` with ``log_process``.  ``lambda_``/``zeta`` may be
         per-sample sequences (see ``restore``).  ``fetch=False`` returns the
         tensors on the runner's device without waiting for the card."""
+        if self.weights_provenance == "abstract":
+            raise RuntimeError("Runner was built with abstract_params=True (no weights "
+                               "materialised): only lower_restore() runs")
         lambda_ = self.cfg.lambda_ if lambda_ is None else lambda_
         zeta = self.cfg.zeta if zeta is None else zeta
 
@@ -310,14 +413,21 @@ class Runner:
         ``bi + 1`` is dispatched before batch ``bi`` is fetched and scored.
         ``hole_metrics=True`` (inpainting) adds ``psnr_hole``/``ssim_hole``:
         PSNR and SSIM over the masked-out (mask == 0) pixels only, which
-        ``recover_known`` does not dilute."""
+        ``recover_known`` does not dilute.  Under a mesh every rank computes
+        the metrics; only rank 0 logs and writes files, and a short last
+        batch is padded to split over the data ranks."""
         cfg = self.cfg
         lambda_ = cfg.lambda_ if lambda_ is None else lambda_
         zeta = cfg.zeta if zeta is None else zeta
         save = (cfg.save_E or cfg.save_L) if save is None else save
+        main = self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
+        save = save and main
         lg = setup_logger(cfg.result_name,
                           os.path.join(cfg.E_path, cfg.result_name + ".log")
                           if save else None)
+        if not main:
+            lg = logging.getLogger(cfg.result_name + ".quiet")
+            lg.disabled = True
         lg.info(f"eta:{cfg.eta}, zeta:{zeta}, lambda:{lambda_}, "
                 f"guidance_scale:{cfg.guidance_scale}, device:{self.device}")
 
@@ -327,7 +437,7 @@ class Runner:
             raise FileNotFoundError(
                 f"no images found under {cfg.L_path!r} (testset_name="
                 f"{cfg.testset_name!r})")
-        batches = make_batches(items, cfg.batch_size)
+        batches = make_batches(items, cfg.batch_size, pad_to_batch=self.mesh is not None)
         lpips_fn = None
         if cfg.calc_LPIPS:
             from diffpir_tpu_torch.metrics import make_lpips
@@ -356,10 +466,12 @@ class Runner:
             if isinstance(out, tuple):  # (restored, progress frames)
                 out, frames = out
                 frames = frames.cpu().numpy()
-            x0 = out.cpu().numpy()
-            dt = time.perf_counter() - t0
             nb = len(batch.names)
-            gt = batch.img_H.astype(np.float32) / 255.0
+            x0 = out.cpu().numpy()[:nb]
+            if frames is not None:
+                frames = frames[:, :nb]
+            dt = time.perf_counter() - t0
+            gt = batch.img_H[:nb].astype(np.float32) / 255.0
             psnr = im.psnr_batch(x0 * 2 - 1, gt * 2 - 1)
             psnrs.append(psnr * nb)
             E_uint = im.single2uint(x0)
@@ -380,7 +492,7 @@ class Runner:
                 psnrs_y.append(psnr_y * nb)
             msg = f"batch{bi + 1:->4d}--> PSNR: {psnr:.4f}dB"
             if hole_metrics:
-                hole = 1.0 - batch.mask[:, :, :, 0]  # (nb, H, W), 1 = hole
+                hole = 1.0 - batch.mask[:nb, :, :, 0]  # (nb, H, W), 1 = hole
                 ph = float(np.mean([
                     im.psnr_region(x0[j] * 2 - 1, gt[j] * 2 - 1, hole[j][:, :, None])
                     for j in range(nb)]))
@@ -412,7 +524,7 @@ class Runner:
                     x0, batch.names, cfg.E_path,
                     f"{cfg.model_name}_x{cfg.sf}_lambda{lambda_:.4f}_zeta{zeta:.4f}_")
             if save and cfg.save_L:
-                im.imsave_batch(batch.img_L, batch.names, cfg.E_path,
+                im.imsave_batch(batch.img_L[:nb], batch.names, cfg.E_path,
                                 f"LR_x{cfg.sf}_")
             if save and cfg.task == "deblur":
                 # each image's PSF (main_ddpir_deblur.py:177: k * 255 * 200,
@@ -500,11 +612,14 @@ class Runner:
                     raise IndexError(f"index {i} >= {len(items)} test images")
             batches = [make_batches([items[i]], 1)[0] for i in idxs]
         n = len(pts)
-        lams = np.array([l for l, _ in pts], np.float32)
-        zets = np.array([z for _, z in pts], np.float32)
+        if self.mesh is not None:
+            d = self.mesh.axis_size("data")
+            n = -(-n // d) * d  # rows padded to split over the data ranks
+        lams = np.array([l for l, _ in pts] + [pts[-1][0]] * (n - len(pts)), np.float32)
+        zets = np.array([z for _, z in pts] + [pts[-1][1]] * (n - len(pts)), np.float32)
         base_seed = cfg.seed if seed is None else seed
-        psnr_acc = np.zeros(n, np.float64)
-        ssim_acc = np.zeros(n, np.float64)
+        psnr_acc = np.zeros(len(pts), np.float64)
+        ssim_acc = np.zeros(len(pts), np.float64)
         first_out = None
         for k, b in enumerate(batches):
             rep = lambda a: None if a is None else np.repeat(a[:1], n, axis=0)
@@ -516,7 +631,7 @@ class Runner:
             if first_out is None:
                 first_out = out
             gt = b.img_H[0].astype(np.float32) / 255.0
-            for i in range(n):
+            for i in range(len(pts)):
                 psnr_acc[i] += float(im.psnr_batch(out[i:i + 1] * 2 - 1, gt[None] * 2 - 1))
                 if cfg.calc_SSIM:
                     ssim_acc[i] += float(im.ssim(im.single2uint(out[i]), b.img_H[0]))
@@ -528,3 +643,189 @@ class Runner:
             results.append(row)
         best_i = int(np.argmax([r["psnr"] for r in results]))
         return {"results": results, "best": results[best_i], "output": first_out[best_i]}
+
+    # ------------------------------------------------------------------
+    def lower_restore(self, batch: int, height: int, width: int,
+                      kernel_hw: tuple[int, int] = (1, 1)) -> dict:
+        """Trace one whole restore on the ``meta`` device, allocating and
+        computing nothing (``diffpir_tpu/runner.py:315-344`` lowers it; here
+        the trace is the record).  Runs on a Runner built with
+        ``abstract_params=True``, so the 553M flagship's dp x tp layout can be
+        checked on any host.  ``height``/``width`` are the observation's size
+        (for SR the low-resolution input).  Returns this rank's:
+
+          * ``param_bytes``: bytes of its (sharded) parameters;
+          * ``activation_peak_bytes``: per UNet level (0 = full resolution),
+            the largest activation one of its layers produces;
+          * ``nfe``: UNet forwards in the trajectory;
+          * ``collectives_per_nfe``: per (op, axis) of one UNet forward,
+            ``count`` and ``bytes`` this rank sends or receives;
+          * ``collectives_outside_unet``: the same for the rest of the restore
+            (the gather of the restored batch over ``data``).
+        """
+        if self.device.type != "meta":
+            raise RuntimeError("lower_restore traces on the meta device: build the "
+                               "Runner with abstract_params=True")
+        cfg, model = self.cfg, self.model
+        meta = dict(device="meta", dtype=torch.float32)
+        y = torch.empty((batch, height, width, cfg.n_channels), **meta)
+        log: list = []
+        marks: list = []
+        peaks: dict = {}
+        hooks = [model.register_forward_pre_hook(lambda m, a: marks.append(len(log))),
+                 model.register_forward_hook(lambda m, a, o: marks.append(len(log)))]
+        full_h = None
+
+        def record(m, a, o):
+            if not torch.is_tensor(o) or o.ndim != 4 or full_h is None:
+                return
+            level = int(round(np.log2(full_h / o.shape[1])))
+            peaks[level] = max(peaks.get(level, 0), o.numel() * o.element_size())
+
+        def first_layer(m, a):
+            nonlocal full_h
+            full_h = a[0].shape[1]
+
+        hooks.append(model.input_blocks_0_0.register_forward_pre_hook(first_layer))
+        for name, m in model.named_children():
+            if name.startswith(("input_blocks", "middle_block", "output_blocks", "out_")):
+                hooks.append(m.register_forward_hook(record))
+        if self.mesh is not None:
+            self.mesh.log = log
+        try:
+            self.restore(y, torch.empty_like(y), cfg.lambda_, cfg.zeta, 0,
+                         noise=lambda i, u, which, shape: torch.empty(shape, **meta),
+                         kernel=torch.empty((batch,) + tuple(kernel_hw), **meta))
+        finally:
+            for h in hooks:
+                h.remove()
+            if self.mesh is not None:
+                self.mesh.log = None
+
+        def tally(entries):
+            out: dict = {}
+            for op, axis, nbytes in entries:
+                row = out.setdefault(f"{op}/{axis}", {"op": op, "axis": axis,
+                                                      "count": 0, "bytes": 0})
+                row["count"] += 1
+                row["bytes"] += nbytes
+            return list(out.values())
+
+        spans = list(zip(marks[0::2], marks[1::2]))
+        inside = {i for a, b in spans for i in range(a, b)}
+        return {
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
+            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "activation_peak_bytes": dict(sorted(peaks.items())),
+            "nfe": len(spans),
+            "collectives_per_nfe": tally(log[spans[0][0]:spans[0][1]]) if spans else [],
+            "collectives_outside_unet": tally(
+                [e for i, e in enumerate(log) if i not in inside]),
+        }
+
+
+def _dryrun_batch(rng, n: int, h: int, task: str):
+    k1 = np.zeros((7, 7), np.float32)
+    k1[3, 3] = 1.0  # identity PSF: the shape of a real one, tame numerics
+    img_H = rng.integers(0, 256, (n, h, h, 3)).astype(np.uint8)
+    mask = np.ones(img_H.shape, np.float32)
+    kernel = np.broadcast_to(k1, (n, 7, 7)).copy()
+    if task == "inpaint":
+        mask = (rng.uniform(size=img_H.shape) > 0.5).astype(np.float32)
+        img_L = img_H.astype(np.float32) * mask / 255.0
+        kernel = np.ones((n, 1, 1), np.float32)
+    elif task == "deblur":
+        img_L = img_H.astype(np.float32) / 255.0
+    else:  # sr: the low-resolution observation, restored at H = h * sf
+        img_L = (img_H.astype(np.float32) / 255.0)[:, ::2, ::2]
+    return Batch(img_H=img_H, img_L=img_L.astype(np.float32), kernel=kernel, mask=mask,
+                 names=[f"im{i}" for i in range(n)])
+
+
+# The dry run's parity bar.  The JAX package holds its meshes to 5e-5, which
+# its random init meets trivially: it zeroes out_conv, so the UNet returns 0.
+# The port's random weights reach the output, and the first step (t = 999)
+# multiplies the UNet's rounding by sqrt(1/alphabar - 1) = 156: reordered
+# sums (and, on the CPU, a batch of 1 against one of 4) then differ by
+# 1e-4 - 2e-4 after two steps.  A wrong row, draw or gather differs by O(1).
+DRYRUN_ATOL = 5e-4
+
+
+def dryrun_restore(n_devices: int, bundle: bool = False) -> None:
+    """The JAX package's mesh dry run (``diffpir_tpu/runner.py:724-849``) on
+    ``n_devices`` ranks: inpaint, deblur and SR restores of the tiny model
+    under dp(n), each also under dp x tp (n/4 x 4) against dp; inpaint under
+    dp x sp (n/2 x 2) and dp x tp x sp (n/4 x 2 x 2), against dp; then one
+    ``RestorationService`` coalescing round.  Run inside a group of
+    ``n_devices`` ranks, or with no group, when it starts one of gloo ranks
+    on the CPU (``parallel.multihost.spawn``).  The JAX dry run's mesh-bundle
+    stage needs the export module, which is not ported (``bundle=True``
+    raises)."""
+    if bundle:
+        raise NotImplementedError(
+            "the mesh-bundle stage waits for the port of export.py (ROADMAP.md "
+            "queue A item 9)")
+    if not dist.is_initialized():
+        from diffpir_tpu_torch.parallel.multihost import spawn
+
+        spawn("diffpir_tpu_torch.runner:dryrun_restore", n_devices, [n_devices])
+        return
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.parallel.multihost import rank_device
+
+    world = dist.get_world_size()
+    assert world == n_devices, f"need {n_devices} ranks, have {world}"
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    device = rank_device()
+    rng = np.random.default_rng(0)
+    H = 64
+
+    def cfg_for(task, shape, axes=None):
+        return load_config(None, overrides=dict(
+            task=task, model_name="tiny_test", iter_num=2, iter_num_U=1,
+            batch_size=n_devices, noise_level_img=0.0, seed=0, dtype="float32",
+            save_L=False, save_E=False, mesh_shape=shape, mesh_axes=axes,
+            **(dict(sf=2, sr_mode="blur") if task == "sr" else {})))
+
+    for task in ("inpaint", "deblur", "sr"):
+        batch = _dryrun_batch(rng, n_devices, H, task)
+        runner = Runner(cfg_for(task, (n_devices,)), device=device)
+        assert runner.mesh is not None, "mesh construction failed"
+        out = runner.restore_batch(batch)
+        assert out.shape == batch.img_H.shape, (out.shape, batch.img_H.shape)
+        assert np.isfinite(out).all(), f"non-finite restore output ({task})"
+        say(f"dryrun_restore: {task} dp({n_devices}): OK")
+        meshes = []
+        if n_devices % 4 == 0:
+            meshes.append(((n_devices // 4, 4), ("data", "model")))
+        if task == "inpaint" and n_devices % 2 == 0:
+            meshes.append(((n_devices // 2, 2), ("data", "space")))
+        if task == "inpaint" and n_devices % 8 == 0:
+            meshes.append(((n_devices // 4, 2, 2), ("data", "model", "space")))
+        for shape, axes in meshes:
+            got = Runner(cfg_for(task, shape, axes), device=device).restore_batch(batch)
+            np.testing.assert_allclose(got, out, rtol=0, atol=DRYRUN_ATOL)
+            say(f"dryrun_restore: {task} {' x '.join(axes)}{shape}: OK (parity vs dp)")
+        if task == "inpaint":
+            inpaint = (cfg_for(task, (n_devices,)), batch)
+
+    say("dryrun_restore: mesh bundle: not run (export.py is not ported, ROADMAP.md "
+        "queue A item 9)")
+    from concurrent.futures import wait
+
+    from diffpir_tpu_torch.serve import RestorationService
+
+    cfg, batch = inpaint
+    svc = RestorationService(cfg, device=device, use_mesh=True, service_batch=n_devices,
+                             max_wait_ms=200.0, allow_random_weights=True)
+    try:
+        futs = [svc.submit(batch.img_L[i], mask=batch.mask[i]) for i in range(n_devices)]
+        wait(futs, timeout=600)
+        outs = [f.result() for f in futs]
+    finally:
+        svc.close()
+    assert all(np.isfinite(o).all() for o in outs)
+    assert outs[0].shape == batch.img_L[0].shape
+    say(f"dryrun_restore: serve coalescing({n_devices}): OK")
+    say(f"dryrun_restore({n_devices}): OK (3-task dp + dp x tp + sp + dp x tp x sp "
+        "+ serve; bundle not ported)")

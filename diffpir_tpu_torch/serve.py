@@ -18,7 +18,12 @@ config and its model once and serves requests of any size:
   * ``submit``, which returns a ``Future``: a worker thread coalesces queued
     requests into batches (waiting at most ``max_wait_ms``), each launch with
     its own seed block, and ``close`` fails what is still queued;
-  * refusal of random weights unless asked for.
+  * refusal of random weights unless asked for;
+  * under a device mesh (``use_mesh``, a process group of several ranks),
+    every rank runs the same service and submits the same requests: each
+    chunk is padded to the service batch as always, and rank 0 decides how
+    many queued requests a coalescing round takes and tells the others
+    (``mesh.host_group``), so every rank launches the same batches.
 
 The runner's ``restore_batch(..., fetch=False)`` returns the card's tensors
 without waiting, so a chunk's fetch overlaps the next chunk's trajectory.
@@ -39,6 +44,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffpir_tpu_torch.config import TaskConfig
 from diffpir_tpu_torch.data import Batch, make_batches, prepare_images
@@ -68,6 +74,7 @@ class RestorationService:
     def __init__(self, cfg: Optional[TaskConfig] = None, *,
                  bundle_path: Optional[str] = None,
                  device: Optional[torch.device | str] = None,
+                 use_mesh: bool = True,
                  service_batch: Optional[int] = None,
                  max_wait_ms: float = 20.0,
                  kernel_size: Optional[int] = None,
@@ -79,10 +86,14 @@ class RestorationService:
         if cfg is None:
             raise ValueError("pass a TaskConfig")
         self.cfg = cfg
-        self.runner = Runner(cfg, device=device)
+        self.runner = Runner(cfg, device=device, use_mesh=use_mesh)
         if self.runner.weights_provenance == "random" and not allow_random_weights:
             raise _random_weights_error(cfg)
         self.batch = service_batch or cfg.batch_size
+        mesh = self.runner.mesh
+        # the group over which rank 0 announces each coalescing round
+        self._rounds = None if mesh is None else mesh.host_group
+        self._leader = not dist.is_initialized() or dist.get_rank() == 0
         # deepest downsample factor of the bound model's topology
         self._pad_mod = 2 ** (len(self.runner.model.cfg.channel_mult) - 1)
         # None: round each PSF up to a multiple of 8; an int: that size
@@ -307,24 +318,55 @@ class RestorationService:
             if not fut.done():
                 fut.set_exception(RequestError("service closed before request was served"))
 
-    def _drain(self) -> None:
-        while not self._shutdown:
+    def _announce(self, n: int) -> int:
+        """Under a mesh: rank 0's ``n``, on every rank."""
+        t = torch.tensor([n], dtype=torch.int64)
+        dist.broadcast(t, src=0, group=self._rounds)
+        return int(t)
+
+    def _collect(self) -> list:
+        """The requests of one coalescing round: the first queued one and
+        whatever follows within ``max_wait_ms``, up to four service batches
+        (so that restore() overlaps one chunk's fetch with the next chunk's
+        trajectory under load)."""
+        try:
+            group = [self._queue.get(timeout=0.1)]
+        except queue.Empty:
+            return []
+        deadline = time.perf_counter() + self._max_wait
+        while len(group) < 4 * self.batch:
+            remain = deadline - time.perf_counter()
+            if remain <= 0:
+                break
             try:
-                first = self._queue.get(timeout=0.1)
+                group.append(self._queue.get(timeout=remain))
             except queue.Empty:
-                continue
-            group = [first]
-            deadline = time.perf_counter() + self._max_wait
-            # up to four service batches per round, so that restore() overlaps
-            # one chunk's fetch with the next chunk's trajectory under load
-            while len(group) < 4 * self.batch:
-                remain = deadline - time.perf_counter()
-                if remain <= 0:
-                    break
-                try:
-                    group.append(self._queue.get(timeout=remain))
-                except queue.Empty:
-                    break
+                break
+        return group
+
+    def _drain(self) -> None:
+        while True:
+            if self._rounds is None:
+                if self._shutdown:
+                    return
+                group = self._collect()
+                if not group:
+                    continue
+            else:
+                # rank 0 announces every round: its size, -1 when it found
+                # nothing (so no rank waits in a collective for long), 0 to
+                # stop; the others then take the same requests in the same
+                # order (every rank submits the same ones)
+                if self._leader:
+                    group = [] if self._shutdown else self._collect()
+                    n = len(group) if group else (0 if self._shutdown else -1)
+                n = self._announce(n if self._leader else 0)
+                if n == 0:
+                    return
+                if n < 0:
+                    continue
+                if not self._leader:
+                    group = [self._queue.get() for _ in range(n)]
             # requests with and without kernels or masks cannot share a batch
             subgroups: dict[tuple, list] = {}
             for g in group:
@@ -364,19 +406,21 @@ class RestorationService:
 
 
 def serve_folder(cfg: TaskConfig, in_dir: str, out_dir: str, *,
-                 device: Optional[torch.device | str] = None, seed: int = 0,
-                 allow_random_weights: bool = False) -> dict:
+                 device: Optional[torch.device | str] = None, use_mesh: bool = True,
+                 seed: int = 0, allow_random_weights: bool = False) -> dict:
     """Restore every image under ``in_dir`` into ``out_dir`` as
     ``restored_<name>`` (degraded with the config's task pipeline), batch
     ``bi`` from seed ``seed + bi``, dispatching batch i+1 before writing
-    batch i."""
-    runner = Runner(cfg, device=device)
+    batch i.  Under a mesh a short last batch is padded to split over the
+    data ranks, and rank 0 alone writes."""
+    runner = Runner(cfg, device=device, use_mesh=use_mesh)
     if runner.weights_provenance == "random" and not allow_random_weights:
         raise _random_weights_error(cfg)
     paths = im.list_images(in_dir)
     if not paths:
         raise FileNotFoundError(f"no images under {in_dir!r}")
-    batches = make_batches(prepare_images(cfg, paths), cfg.batch_size)
+    batches = make_batches(prepare_images(cfg, paths), cfg.batch_size,
+                           pad_to_batch=runner.mesh is not None)
     os.makedirs(out_dir, exist_ok=True)
     n, t0 = 0, time.perf_counter()
 
@@ -384,7 +428,9 @@ def serve_folder(cfg: TaskConfig, in_dir: str, out_dir: str, *,
         nonlocal n
         if isinstance(out, tuple):
             out = out[0]
-        im.imsave_batch(out.cpu().numpy(), batch.names, out_dir, "restored_")
+        if runner.mesh is None or dist.get_rank() == 0:
+            im.imsave_batch(out.cpu().numpy()[:len(batch.names)], batch.names, out_dir,
+                            "restored_")
         n += len(batch.names)
 
     overlap_dispatch(

@@ -26,8 +26,19 @@ draws come from a ``torch.Generator``, or are handed in (``t``, ``noise``).
 package folds the step into its key, so a resumed run draws what an
 unbroken one would.  Checkpoints are ``torch.save`` files; the JAX
 package's orbax checkpoints are not read (the EMA ``.flax.npz`` of
-``train/demo.py`` is what both packages share).  Data- and model-parallel
-training (``mesh=``, ``dryrun_train_step``) is not ported yet.
+``train/demo.py`` is what both packages share).
+
+Under a mesh (``Trainer(mesh=)``, ``parallel/mesh.py``; ``diffpir_tpu/train/
+loop.py:59-71``) every rank is given the global batch and the same
+generator: the timesteps and noise are drawn for the global batch, each
+microbatch is a slice of it, and each ``data`` rank computes its rows of
+every microbatch; the gradients are summed over ``data`` and the loss is the
+global mean.  The parameters, the Adam moments and the EMA are sharded
+fsdp-style over ``model``: each parameter's largest dim that the axis
+divides (``_param_sharding_rule``) is split, each rank updates its slice,
+and the slices are gathered into the model before each step.  The
+loss-second-moment sampler takes the gathered per-sample losses in global
+row order, so every rank keeps the same sampler state.
 """
 
 from __future__ import annotations
@@ -39,15 +50,16 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from diffpir_tpu_torch.diffusion import Diffusion
 from diffpir_tpu_torch.models.unet import UNet
 from diffpir_tpu_torch.models.zoo import init_train_
+from diffpir_tpu_torch.parallel import collectives as coll
 from diffpir_tpu_torch.train import samplers
 
 __all__ = ["TrainConfig", "TrainState", "Trainer", "dryrun_train_step"]
 
-_NO_MESH = ("data- and model-parallel training (mesh=, dryrun_train_step) is not "
-            "ported yet: ROADMAP.md queue A item 12 (parallel/)")
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
@@ -67,6 +79,17 @@ class TrainConfig:
 TrainState = dict
 
 
+def _param_sharding_rule(shape, size: int) -> Optional[int]:
+    """fsdp-style: the largest dim of ``shape`` that ``size`` divides (the
+    JAX package's order of the dims), or None to replicate."""
+    if size == 1 or not len(shape):
+        return None
+    for d in np.argsort(shape)[::-1]:
+        if shape[d] % size == 0 and shape[d] >= size:
+            return int(d)
+    return None
+
+
 def _dispatch_seed(seed: int, step: int) -> int:
     """The seed of ``fit``'s generator for the dispatch that starts at
     ``step`` (the counterpart of ``jax.random.fold_in(key, step)``)."""
@@ -74,12 +97,15 @@ def _dispatch_seed(seed: int, step: int) -> int:
 
 
 class Trainer:
-    """Bind (model, diffusion, optimizer) for one device."""
+    """Bind (model, diffusion, optimizer) for one device, or for this rank
+    of ``mesh`` (axes ``data`` and ``model``)."""
 
     def __init__(self, model: UNet, diffusion: Diffusion, cfg: TrainConfig,
                  mesh: Any = None):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        if mesh is not None and mesh.axis_size("space") > 1:
+            raise ValueError("training splits the batch over data and the state "
+                             "over model; a space axis is for inference")
+        self.mesh = mesh
         if cfg.schedule_sampler not in ("uniform", "loss-second-moment"):
             raise ValueError(f"unknown schedule_sampler {cfg.schedule_sampler!r}")
         self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -106,9 +132,12 @@ class Trainer:
         of the parameters, step 0."""
         if seed is not None:
             init_train_(self.model, seed)
-        params = dict(self.model.named_parameters())
-        for p in params.values():
+        full = dict(self.model.named_parameters())
+        for p in full.values():
             p.requires_grad_(True)
+        # this rank's slices (views of the model's parameters, so an update in
+        # place reaches the model): all of each without a model axis
+        params = {n: self._local(p) for n, p in full.items()}
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
         state = dict(params=params,
                      opt_state=dict(count=0, mu=zeros(), nu=zeros()),
@@ -139,12 +168,16 @@ class Trainer:
             noise = torch.randn(batch.shape, generator=generator, device=self.device)
         return t, weights, torch.as_tensor(noise, device=self.device).float()
 
-    def _loss(self, batch, t, weights, noise):
+    def _loss(self, batch, t, weights, noise, size: Optional[int] = None):
+        """The weighted loss of ``batch``'s rows, over the ``size`` rows of
+        their microbatch (by default the rows themselves: no data axis)."""
         def model_fn(x, tv):
             return self.model(x.to(self.dtype), tv)
 
         terms = self.diffusion.training_losses(model_fn, batch, t, noise)
-        return (terms["loss"] * weights).mean(), terms["loss"]
+        if size is None or batch.shape[0] == size:
+            return (terms["loss"] * weights).mean(), terms["loss"]
+        return (terms["loss"] * weights).sum() / size, terms["loss"]
 
     def _lr(self, count: int) -> float:
         """optax's ``linear_schedule(lr, 0, lr_anneal_steps)`` in fp32."""
@@ -155,6 +188,31 @@ class Trainer:
         frac = np.float32(1.0) - np.float32(min(max(count, 0), cfg.lr_anneal_steps)) / n
         return float(np.float32(cfg.lr) * frac)
 
+    # ------------------------------------------------------------------
+    def _axis(self, axis: str) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_size(axis)
+
+    def _local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full parameter-shaped tensor over ``model``
+        (a view), or the tensor itself."""
+        n = self._axis("model")
+        d = _param_sharding_rule(tuple(full.shape), n)
+        if d is None:
+            return full
+        k = full.shape[d] // n
+        return full.narrow(d, self.mesh.axis_index("model") * k, k)
+
+    def _gather_params(self) -> None:
+        """Refresh the model's parameters from every rank's updated slice."""
+        n = self._axis("model")
+        if n == 1:
+            return
+        with torch.no_grad():
+            for p in self.model.parameters():
+                d = _param_sharding_rule(tuple(p.shape), n)
+                if d is not None:
+                    p.copy_(coll.all_gather(self._local(p), self.mesh, "model", d))
+
     def train_step(self, state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
                    t: Optional[torch.Tensor] = None,
@@ -162,7 +220,8 @@ class Trainer:
         """One optimisation step (gradients accumulated over microbatches).
         ``t`` and ``noise`` (the batch's shape) are drawn from ``generator``
         unless given.  Returns (state, {"loss", "grad_norm"}) with the
-        metrics as device scalars."""
+        metrics as device scalars.  Under a mesh ``batch`` (and ``t``,
+        ``noise``) are the global batch's, on every rank."""
         cfg = self.cfg
         batch = torch.as_tensor(batch, device=self.device).float()
         b = batch.shape[0]
@@ -173,19 +232,30 @@ class Trainer:
                 f"(or <= it); pad the batch or adjust cfg.microbatch")
         t, weights, noise = self._draws(state, batch, generator, t, noise)
         n_micro = max(b // mb, 1)
-        params = list(state["params"].values())
+        size = b if n_micro == 1 else mb
+        n_data = self._axis("data")
+        if size % n_data:
+            raise ValueError(f"microbatches of {size} do not split over {n_data} "
+                             "data ranks")
+        self._gather_params()
+        params = list(self.model.parameters())
+        r, per = self.mesh.axis_index("data") if n_data > 1 else 0, size // n_data
         grads, per_ex = None, []
         for i in range(n_micro):
-            part = slice(i * mb, (i + 1) * mb) if n_micro > 1 else slice(None)
-            loss, per = self._loss(batch[part], t[part], weights[part], noise[part])
+            lo = i * size + r * per
+            part = slice(lo, lo + per) if n_micro > 1 or n_data > 1 else slice(None)
+            loss, per_rows = self._loss(batch[part], t[part], weights[part], noise[part],
+                                        size)
             g = torch.autograd.grad(loss, params)
             grads = list(g) if grads is None else torch._foreach_add(grads, g)
-            per_ex.append(per.detach())
+            per_ex.append(coll.all_gather(per_rows.detach(), self.mesh, "data"))
         per_ex = torch.cat(per_ex)
         with torch.no_grad():
+            if n_data > 1:
+                grads = [coll.all_reduce_sum(g, self.mesh, "data") for g in grads]
             if n_micro > 1:
                 torch._foreach_div_(grads, float(n_micro))
-            grad_norm = self._update(state, params, grads)
+            grad_norm = self._update(state, list(state["params"].values()), grads)
             if cfg.schedule_sampler == "loss-second-moment":
                 state["sampler_state"] = samplers.loss_aware_update(
                     state["sampler_state"], t, per_ex)
@@ -193,9 +263,11 @@ class Trainer:
         return state, {"loss": per_ex.mean(), "grad_norm": grad_norm}
 
     def _update(self, state: TrainState, params, grads) -> torch.Tensor:
-        """Clip, AdamW and EMA, in place; returns the global gradient norm."""
+        """Clip, AdamW and EMA of this rank's slices, in place; ``grads`` are
+        the full gradients.  Returns the global gradient norm."""
         cfg = self.cfg
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grads = [self._local(g) for g in grads]
         if cfg.grad_clip:
             keep = grad_norm < cfg.grad_clip
             grads = [torch.where(keep, g, g / grad_norm * cfg.grad_clip) for g in grads]
@@ -279,11 +351,21 @@ class Trainer:
         only the int32 indices ``numpy.random.default_rng(pool_seed)``
         draws).  ``steps_per_call`` steps go into each dispatch; the log and
         save intervals fire when a dispatch crosses them.
+
+        Under a mesh (the Trainer's, or ``mesh`` here when it has no
+        ``model`` axis, which would shard the state) every rank must see the
+        same global batches, as ``pool`` and a seeded ``data_iterator`` give
+        them; only rank 0 logs and writes checkpoints.
         """
         from diffpir_tpu_torch.utils import kvlogger
 
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        if mesh is not None and mesh is not self.mesh:
+            if self.mesh is not None or mesh.axis_size("model") > 1:
+                raise ValueError("fit(mesh=) takes a data-parallel mesh for a Trainer "
+                                 "built without one; a model axis shards the state, so "
+                                 "give it to Trainer(mesh=) before init_state")
+            self.mesh = mesh
+        main = self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
         K = max(steps_per_call, 1)
         if (pool is None) == (data_iterator is None):
             raise ValueError("fit() needs exactly one of data_iterator / pool")
@@ -316,7 +398,9 @@ class Trainer:
             prev, i = i, i + k_eff
             # the metrics stay on the device between log points: a float()
             # per step would wait for the card every step
-            if i // log_interval > prev // log_interval:
+            if i // log_interval > prev // log_interval and not main:
+                metric_buf.clear()
+            elif i // log_interval > prev // log_interval:
                 for m in metric_buf:
                     kvlogger.logkv_mean("loss", float(m["loss"]))
                     kvlogger.logkv_mean("grad_norm", float(m["grad_norm"]))
@@ -340,25 +424,39 @@ class Trainer:
     def save(self, state: TrainState, ckpt_dir: str, step: Optional[int] = None) -> str:
         """``torch.save`` the whole state (parameters, Adam moments and
         count, EMA, step, sampler state) to ``ckpt_dir/step_{step:08d}``,
-        through a temporary file renamed into place."""
+        through a temporary file renamed into place.  Under a mesh the
+        slices are gathered on every rank and rank 0 writes."""
         step = int(state["step"]) if step is None else step
-        os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
+        self._gather_params()
+        full = dict(self.model.named_parameters())
 
         def cpu(d):
-            return {n: v.detach().cpu() for n, v in d.items()}
+            return {n: self._full(v, full[n]).detach().cpu() for n, v in d.items()}
 
         opt = state["opt_state"]
-        blob = dict(params=cpu(state["params"]),
+        blob = dict(params={n: p.detach().cpu() for n, p in full.items()},
                     opt_state=dict(count=int(opt["count"]), mu=cpu(opt["mu"]),
                                    nu=cpu(opt["nu"])),
                     ema=[cpu(e) for e in state["ema"]], step=int(state["step"]))
         if "sampler_state" in state:
-            blob["sampler_state"] = cpu(state["sampler_state"]._asdict())
+            blob["sampler_state"] = {k: v.detach().cpu()
+                                     for k, v in state["sampler_state"]._asdict().items()}
+        if self.mesh is not None and dist.is_initialized() and dist.get_rank() != 0:
+            return path
+        os.makedirs(ckpt_dir, exist_ok=True)
         tmp = path + ".tmp"
         torch.save(blob, tmp)
         os.replace(tmp, path)
         return path
+
+    def _full(self, v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """The full tensor of this rank's slice ``v`` of a tensor shaped as
+        the parameter ``like``."""
+        d = _param_sharding_rule(tuple(like.shape), self._axis("model"))
+        if d is None:
+            return v
+        return coll.all_gather(v.contiguous(), self.mesh, "model", d)
 
     def restore(self, path: str) -> TrainState:
         """The state saved at ``path``, its parameters loaded into the model."""
@@ -368,15 +466,15 @@ class Trainer:
             raise ValueError(f"{path} holds the parameters of another model")
         dev = self.device
 
-        def on_dev(d):
-            return {n: d[n].to(dev) for n in params}
+        def on_dev(d):  # this rank's slices
+            return {n: self._local(d[n].to(dev)).clone() for n in params}
 
         with torch.no_grad():
             for n, p in params.items():
                 p.copy_(blob["params"][n])
                 p.requires_grad_(True)
         opt = blob["opt_state"]
-        state = dict(params=params,
+        state = dict(params={n: self._local(p) for n, p in params.items()},
                      opt_state=dict(count=opt["count"], mu=on_dev(opt["mu"]),
                                     nu=on_dev(opt["nu"])),
                      ema=tuple(on_dev(e) for e in blob["ema"]), step=blob["step"])
@@ -386,6 +484,51 @@ class Trainer:
         return state
 
 
-def dryrun_train_step(n_devices: int) -> None:
-    """The JAX package's sharded dry-run train step; not ported yet."""
-    raise NotImplementedError(_NO_MESH)
+def dryrun_train_step(n_devices: int) -> float:
+    """One sharded train step on tiny shapes (``diffpir_tpu/train/loop.py:
+    368-406``): the batch over ``data``, the parameters, Adam moments and
+    EMA fsdp-sharded over ``model`` (2 when ``n_devices`` is even), fp32,
+    microbatches of 4, the loss-second-moment sampler.  Returns the loss, a
+    global-batch mean, so every rank and the one-rank run agree on it.  Run
+    in a group of ``n_devices`` ranks; with no group and ``n_devices`` > 1
+    it starts one of gloo ranks on the CPU and returns rank 0's loss."""
+    from diffpir_tpu_torch.models.unet import UNetConfig
+    from diffpir_tpu_torch.parallel.mesh import make_mesh
+    from diffpir_tpu_torch.parallel.multihost import rank_device, spawn
+    from diffpir_tpu_torch.diffusion import ModelMeanType, ModelVarType
+    from diffpir_tpu_torch.schedule import NoiseSchedule
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices > 1 and world == 1:
+        return spawn("diffpir_tpu_torch.train.loop:dryrun_train_step", n_devices,
+                     [n_devices])[0]
+    if world != n_devices:
+        raise ValueError(f"dryrun_train_step({n_devices}) runs on {n_devices} ranks, "
+                         f"this group has {world}")
+    mesh = None
+    if n_devices > 1:
+        model_axis = 2 if n_devices % 2 == 0 else 1
+        mesh = make_mesh((n_devices // model_axis, model_axis), ("data", "model"))
+    device = rank_device()
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ucfg = UNetConfig(image_size=16, model_channels=32, out_channels=6,
+                      num_res_blocks=1, attention_resolutions=(2,),
+                      channel_mult=(1, 2), num_heads=4, num_head_channels=16,
+                      dropout=0.0)
+    model = UNet(ucfg, dtype=torch.float32, param_dtype=torch.float32).to(device)
+    diff = Diffusion(NoiseSchedule.named("linear", 100), ModelMeanType.EPSILON,
+                     ModelVarType.LEARNED_RANGE)
+    tcfg = TrainConfig(lr=1e-4, ema_rates=(0.999,), microbatch=4,
+                       compute_dtype="float32", schedule_sampler="loss-second-moment")
+    trainer = Trainer(model, diff, tcfg, mesh=mesh)
+    state = trainer.init_state(0)
+    batch = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((8, 16, 16, 3)).astype(np.float32))
+    gen = torch.Generator(device).manual_seed(1)
+    state, metrics = trainer.train_step(state, batch, gen)
+    loss = float(metrics["loss"])
+    assert np.isfinite(loss), f"non-finite loss {loss}"
+    assert int(state["step"]) == 1
+    return loss

@@ -11,6 +11,8 @@ Pillow.
   * ``ssim``        MATLAB SSIM: 11x11 Gaussian sigma 1.5, valid-region crop,
                     optionally averaged over a region
   * ``rgb_to_y``    MATLAB rgb2ycbcr Y channel
+  * ``rgb_to_ycbcr``/``ycbcr_to_rgb`` MATLAB rgb2ycbcr/ycbcr2rgb, mutation-free
+  * ``augment``/``augment_inverse`` the 8 dihedral modes of the x8 ensemble
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from diffpir_tpu_torch.utils.png import read_png, write_png
 __all__ = [
     "list_images", "imread_uint", "imsave", "imsave_batch", "uint2single",
     "single2uint", "modcrop", "shave", "psnr", "psnr_batch", "psnr_region", "ssim",
-    "rgb_to_y", "rgb_to_y_batch",
+    "rgb_to_y", "rgb_to_y_batch", "rgb_to_ycbcr", "ycbcr_to_rgb", "augment",
+    "augment_inverse",
 ]
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".tif", ".tiff")
@@ -220,3 +223,67 @@ def rgb_to_y_batch(batch: np.ndarray) -> np.ndarray:
     (the reference applies it directly to [-1,1] images for PSNR-Y)."""
     return (0.299 * batch[..., 0] + 0.587 * batch[..., 1]
             + 0.114 * batch[..., 2])[..., None]
+
+
+def rgb_to_ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
+    """MATLAB rgb2ycbcr (reference ``utils_image.py:446-467``): uint8 [0,255]
+    in -> uint8 out, float [0,1] -> float [0,1].  Unlike the reference, the
+    input is never changed in place."""
+    if only_y:
+        return rgb_to_y(img)
+    in_type = img.dtype
+    x = img.astype(np.float64)
+    if in_type != np.uint8:
+        x = x * 255.0
+    m = np.array([[65.481, -37.797, 112.0],
+                  [128.553, -74.203, -93.786],
+                  [24.966, 112.0, -18.214]])
+    out = x @ m / 255.0 + np.array([16.0, 128.0, 128.0])
+    if in_type == np.uint8:
+        return out.round().astype(np.uint8)
+    return (out / 255.0).astype(in_type)
+
+
+def ycbcr_to_rgb(img: np.ndarray) -> np.ndarray:
+    """MATLAB ycbcr2rgb (reference ``utils_image.py:493-511``), the inverse of
+    ``rgb_to_ycbcr(only_y=False)`` up to the [0,255] clip; input unchanged."""
+    in_type = img.dtype
+    x = img.astype(np.float64)
+    if in_type != np.uint8:
+        x = x * 255.0
+    m = np.array([[0.00456621, 0.00456621, 0.00456621],
+                  [0.0, -0.00153632, 0.00791071],
+                  [0.00625893, -0.00318811, 0.0]])
+    out = x @ m * 255.0 + np.array([-222.921, 135.576, -276.836])
+    out = np.clip(out, 0, 255)
+    if in_type == np.uint8:
+        return out.round().astype(np.uint8)
+    return (out / 255.0).astype(in_type)
+
+
+def augment(img: np.ndarray, mode: int) -> np.ndarray:
+    """Dihedral modes 0-7 of reference ``augment_img`` (``utils_image.py:333-351``)."""
+    if mode == 0:
+        return img
+    if mode == 1:
+        return np.flipud(np.rot90(img))
+    if mode == 2:
+        return np.flipud(img)
+    if mode == 3:
+        return np.rot90(img, k=3)
+    if mode == 4:
+        return np.flipud(np.rot90(img, k=2))
+    if mode == 5:
+        return np.rot90(img)
+    if mode == 6:
+        return np.rot90(img, k=2)
+    if mode == 7:
+        return np.flipud(np.rot90(img, k=3))
+    raise ValueError(mode)
+
+
+def augment_inverse(img: np.ndarray, mode: int) -> np.ndarray:
+    """The inverse of ``augment`` (the reference's x8 ensemble undoes modes
+    3 and 5 with each other)."""
+    inv = {0: 0, 1: 1, 2: 2, 3: 5, 4: 4, 5: 3, 6: 6, 7: 7}
+    return augment(img, inv[mode])

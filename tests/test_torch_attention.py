@@ -79,7 +79,7 @@ def test_rows_per_block_covers_t_within_kernel_limits(b, t, heads, ch, is_bf16):
         # the largest tile that still gives every SM a block
         larger = [r for r in tattn.ROWS_PER_BLOCK[is_bf16] if r > rows]
         assert all(b * heads * -(-t // r) < num_sms for r in larger)
-    assert b * heads <= tattn.MAX_PAIRS
+    assert tattn.wide_blocks(b, t, heads) <= tattn.WIDE_BLOCKS
 
 
 def test_misaligned_qkv_is_refused_before_any_build(monkeypatch):
@@ -97,3 +97,28 @@ def test_misaligned_qkv_is_refused_before_any_build(monkeypatch):
     with pytest.raises(ValueError, match="16-byte boundary"):
         tattn.check_inputs(shifted, 2)
     assert tattn.check_inputs(flat[8:].view(1, 64, 192), 2) == 32
+
+
+@pytest.mark.parametrize("b,t,heads,ch", [(1, 64, 2, 320), (2, 48, 1, 512)])
+def test_wide_heads_plain_matches_xla_and_pallas(b, t, heads, ch):
+    """Head widths above 256 (fault C5: a num_head_channels of -1 with one
+    or two heads): the wrapper's CPU route against the XLA path and the
+    Pallas kernel in interpret mode, as for the narrow widths."""
+    qkv = _qkv(ch, b, t, heads, ch)
+    assert tattn.check_inputs(torch.from_numpy(qkv), heads) == ch
+    got = tattn.legacy_qkv_attention(torch.from_numpy(qkv), heads).numpy()
+    ref = np.asarray(_legacy_qkv_attention(jnp.asarray(qkv), heads))
+    np.testing.assert_allclose(got, ref, **FP32)
+    pal = np.asarray(pallas_attention(jnp.asarray(qkv), heads))
+    np.testing.assert_allclose(got, pal, **FP32)
+
+
+@pytest.mark.parametrize("b,t,heads", [(1, 1, 1), (4, 4096, 2), (40000, 3, 2), (1, 65536, 1)])
+def test_wide_kernel_grid_and_workspace_are_bounded(b, t, heads):
+    """attn_wide's blocks cover every (pair, 16-row tile) item in a grid
+    stride, within WIDE_BLOCKS blocks and WIDE_WS_BYTES of workspace (one
+    block at least)."""
+    blocks = tattn.wide_blocks(b, t, heads)
+    items = b * heads * -(-t // tattn.WIDE_ROWS)
+    assert 1 <= blocks <= min(items, tattn.WIDE_BLOCKS)
+    assert blocks == 1 or blocks * tattn.WIDE_ROWS * t * 4 <= tattn.WIDE_WS_BYTES

@@ -274,3 +274,57 @@ def test_ticket_counters_are_never_made_during_graph_capture(monkeypatch):
         tgn._counters(dev, 7, buf.numel() + 1)          # would have to grow
     with pytest.raises(RuntimeError, match="before the CUDA-graph capture"):
         tgn._counters(dev, 8, 4)                        # another stream
+
+
+# -- the two halves of the sharded GroupNorm (spatial parallelism) ----------
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_sharded_halves_match_xla(dtype, shards):
+    """Partial statistics of each row shard, merged in shard order, then the
+    apply half on each shard: the whole image's GroupNorm+FiLM+SiLU, as the
+    JAX package's XLA path computes it (one shard: the plain version bit for
+    bit)."""
+    x, scale, bias, fs, fb = _inputs(11, (2, 16, 8, 64), True)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    xt = torch.from_numpy(x).to(tdt)
+    args = (torch.from_numpy(scale), torch.from_numpy(bias), torch.from_numpy(fs),
+            torch.from_numpy(fb))
+    rows = xt.shape[1] // shards
+    parts = [xt[:, i * rows:(i + 1) * rows] for i in range(shards)]
+    stats = tgn.merge_partial_stats(
+        torch.stack([tgn.groupnorm_partial_stats(p) for p in parts]), tdt == torch.bfloat16)
+    assert stats.shape == (2, 32, 2) and stats.dtype == torch.float32
+    got = torch.cat([tgn.groupnorm_apply_stats(p, args[0], args[1], stats, *args[2:])
+                     for p in parts], dim=1)
+    ref = _xla(x, scale, bias, fs, fb, True,
+               jnp.float32 if dtype is np.float32 else jnp.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=ATOL[dtype], rtol=0)
+    if shards == 1:
+        plain = tgn.groupnorm_silu_plain(xt, *args)
+        assert torch.equal(got, plain)
+
+
+def test_partial_stats_layout_and_plain_on_cpu():
+    """fp32 partials are (n, mean, M2), bf16 (sum x, sum x^2, n); the
+    wrappers run their plain versions on the CPU and launch nothing."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 4, 32)).astype(np.float32))
+    LAUNCHES.clear()
+    f32 = tgn.groupnorm_partial_stats(x)
+    g = x.reshape(1, 16, 32, 1).reshape(1, 16, 32)  # 32 groups of one channel
+    np.testing.assert_allclose(f32[0, :, 0].numpy(), 16.0)
+    np.testing.assert_allclose(f32[0, :, 1].numpy(), g.mean(1)[0].numpy(), atol=1e-6)
+    np.testing.assert_allclose(f32[0, :, 2].numpy(),
+                               ((g - g.mean(1, keepdim=True)) ** 2).sum(1)[0].numpy(),
+                               atol=1e-5)
+    xb = x.to(torch.bfloat16)
+    b16 = tgn.groupnorm_partial_stats(xb)
+    gb = xb.float().reshape(1, 16, 32)
+    np.testing.assert_allclose(b16[0, :, 0].numpy(), gb.sum(1)[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(b16[0, :, 1].numpy(), (gb ** 2).sum(1)[0].numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(b16[0, :, 2].numpy(), 16.0)
+    assert LAUNCHES["groupnorm_partial_stats"] == LAUNCHES["groupnorm_apply_stats"] == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        tgn.groupnorm_partial_stats(torch.empty((1, 4, 4, 32), device="meta"))

@@ -175,22 +175,27 @@ def test_cli_deblur_sweep_is_one_point_at_7_lambda_3_zeta():
 
 
 def test_unported_options_are_refused():
-    """What the deblur and SR paths still refuse: the device mesh, and
-    attention heads wider than the CUDA kernel's 256 channels; the DIY motion
-    PSF, LPIPS, FID, the first-order prox (sub_1_analytic=false) and the DPS
-    modes build."""
+    """What the deblur and SR paths still refuse: DPS_y0 under a mesh with
+    a model or space axis (no gradient through those collectives).  The
+    device mesh, the DIY motion PSF, LPIPS, FID, the first-order prox
+    (sub_1_analytic=false), the DPS modes and attention heads wider than 256
+    channels (no longer a limit of the CUDA kernel) build."""
     for path in (DEBLUR, SISR):
-        _, tcfg = _configs(path, mesh_shape=[1])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trunner.Runner(tcfg, device="cpu")
+        for axes in (("data", "model"), ("data", "space")):
+            _, tcfg = _configs(path, mesh_shape=[1, 2], mesh_axes=list(axes),
+                               generate_mode="DPS_y0")
+            with pytest.raises(NotImplementedError, match="DPS_y0"):
+                trunner.Runner(tcfg, abstract_params=True)
+        _, tcfg = _configs(path, mesh_shape=[1, 2], generate_mode="DPS_yt")
+        assert trunner.Runner(tcfg, abstract_params=True).mesh.shape == {"data": 1,
+                                                                          "model": 2}
         for over in (dict(sub_1_analytic=False), dict(generate_mode="DPS_y0"),
                      dict(generate_mode="DPS_yt"), dict(calc_LPIPS=True),
                      dict(calc_FID=True), dict(use_DIY_kernel=True, blur_mode="motion")):
             _, tcfg = _configs(path, **over)
             trunner.Runner(tcfg, device="cpu")
     for ch in (257, 320):
-        with pytest.raises(ValueError, match="outside the kernel's 1..256"):
-            tattn.check_inputs(torch.zeros((1, 4, 3 * 2 * ch)), 2)
+        assert tattn.check_inputs(torch.zeros((1, 4, 3 * 2 * ch)), 2) == ch
 
 
 def _model_names():

@@ -287,13 +287,19 @@ def test_refusals():
     tr, st = _port(dict(CFG, microbatch=3))
     with pytest.raises(ValueError, match="multiple of microbatch"):
         tr.train_step(st, _batches(1)[0], torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tloop.Trainer(tr.model, tr.diffusion, tr.cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    # the mesh paths (tests/test_torch_parallel.py) refuse a space axis, a
+    # model axis handed to fit() after the state was made, and a dry run on
+    # a group of another size
+    from diffpir_tpu_torch.parallel.mesh import abstract_mesh
+
+    with pytest.raises(ValueError, match="space axis"):
+        tloop.Trainer(tr.model, tr.diffusion, tr.cfg,
+                      mesh=abstract_mesh((1, 2), ("data", "space")))
+    with pytest.raises(ValueError, match="model axis shards the state"):
         tr.fit(st, steps=1, pool=np.zeros((4, 16, 16, 3), np.float32), batch_size=4,
-               mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tloop.dryrun_train_step(8)
+               mesh=abstract_mesh((1, 2), ("data", "model")))
+    with pytest.raises(ValueError, match="runs on 0 ranks"):
+        tloop.dryrun_train_step(0)
     with pytest.raises(ValueError, match="fp32 master"):
         tloop.Trainer(TUNet(TUNetConfig(**UNET)).to(torch.bfloat16), tr.diffusion,
                       tr.cfg)

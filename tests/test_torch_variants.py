@@ -236,7 +236,12 @@ def test_other_head_widths_plain_attention_matches_pallas(ch, heads, t):
 
 
 def test_head_widths_above_the_kernel_limit_are_refused():
-    qkv = torch.zeros((1, 4, 3 * 2 * 257))
-    with pytest.raises(ValueError, match="1..256"):
-        tattn.check_inputs(qkv, 2)
-    assert 257 not in tattn.KERNEL_HEAD_CHANNELS and 256 in tattn.KERNEL_HEAD_CHANNELS
+    """The kernel has no width limit now (256 was the last before attn_wide):
+    wider heads are taken, and only a shape that does not split into heads
+    is refused."""
+    for ch in (257, 320, 512, 1024):
+        assert tattn.check_inputs(torch.zeros((1, 4, 3 * 2 * ch)), 2) == ch
+        assert ch in tattn.KERNEL_HEAD_CHANNELS
+    assert 256 in tattn.KERNEL_HEAD_CHANNELS and 0 not in tattn.KERNEL_HEAD_CHANNELS
+    with pytest.raises(ValueError, match="3\\*heads\\*ch"):
+        tattn.check_inputs(torch.zeros((1, 4, 3 * 2 * 257 + 1)), 2)
