@@ -90,6 +90,27 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              (/stats), images per second and ms per NFE of the coalesced
              batch beside the same batch without HTTP and the CLI's demo256
              inpaint ms per NFE of phase tasks
+  export     bundles (diffpir_tpu_torch.export) against the live runner at
+             one seed, each exported on the card: the trained demo256 prior's
+             inpaint (bf16, b4, 100 NFE, dynamic_point) whose step program must
+             hold one groupnorm_silu and one legacy_qkv_attention node per call
+             of a forward and no plain-version node, launch the live run's
+             kernels, and come within EXPORT_PSNR_TOL_DB of its PSNR (bit for
+             bit is expected; the largest difference is printed), ms per NFE
+             of bundle and live in turns; then, started together once the
+             sidecar is written (LoadedRestore.save_aot), two fresh ``python -c``
+             processes that load it, run it and print boot_timings with no
+             model, sampler or runner module imported, one without the sidecar
+             and one with it in which any kernel build raises, and ``python -m
+             diffpir_tpu_torch.server_http --bundle``, whose one POST /restore
+             must equal the bundle service's restore; demo64 deblur (fp32, the Levin k0 PSF, the FFT
+             prox's spectra from the prologue) within EXPORT_DEBLUR_ATOL; and
+             the diffusion_ffhq_10m topology at full width (seeded random
+             weights, bf16, b4, 256 px, 4 NFE) as demo256, with the export's
+             seconds and the program's size.  Where the demo256 bundle runs
+             more than 1.25x the live runner's ms per NFE, one bundle call's
+             cProfile, the other threads, the caching allocator's traffic and
+             torch.profiler tables of a bundle and a live call are logged
   train      the training path (diffpir_tpu_torch.train): the DEMO256 recipe
              (scripts/train_demo.py --arch hq256 --batch 16 --lr 1e-4,
              resumed from the 54M prior, bf16 compute with fp32 masters,
@@ -138,7 +159,10 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              4-NFE inpaint restore; the trained DEMO256 prior under sp = 2
              (bf16, b4, 4 NFE), which must launch the sharded GroupNorm's two
              kernels at every GroupNorm; demo64 under dp x tp x sp = 2x2x2
-             (fp32, 2 NFE); dryrun_train_step(4); and a group of one rank
+             (fp32, 2 NFE); a bundle of demo64's restore (fp32, 2 NFE) under
+             data x model = 1 x 2, exported and run on the tp/sp pair's ranks, within
+             DRYRUN_ATOL of the unsharded restore with the kernels' launches;
+             dryrun_train_step(4); and a group of one rank
              over NCCL made by multihost.initialize, whose restore must equal
              this process's bit for bit.  Per run: backend, world size,
              mesh, errors, ms per NFE and peak memory per rank (in the
@@ -348,6 +372,16 @@ PAIRS_CASE = (33000, 4, 2, 32)
 # b4, 256 px, 4 NFE) under sp = 2 at the same bars; demo64 (fp32, 2 NFE)
 # under dp x tp x sp = 2 x 2 x 2 at DRYRUN_ATOL (runner.py: the first step
 # multiplies the UNet's rounding by 156); dryrun_train_step(4) at 1e-5.
+# phase export: bundles against the live runner.  The bundle runs the live
+# path's operations in its order with its draws, so bit-equal outputs are
+# expected; the bars are EXPORT_PSNR_TOL_DB and, for the fp32 deblur,
+# EXPORT_DEBLUR_ATOL
+EXPORT_PSNR_TOL_DB = 0.01
+EXPORT_DEBLUR_ATOL = 1e-5
+EXPORT_FFHQ_ITER = 5               # 4 NFE
+# the modules a bundle's serving process must not import
+MODEL_MODULES = ("diffpir_tpu_torch.models", "diffpir_tpu_torch.sampler",
+                 "diffpir_tpu_torch.runner")
 PARALLEL_ITER = 5                  # 4 NFE: the final denoise is skipped
 PARALLEL_MESH3_ITER = 3            # 2 NFE
 PARALLEL_TRAIN_ATOL = 1e-5
@@ -962,7 +996,7 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
         masks = [it["mask"] for it in items]
         cli_batch = make_batches(items, len(items))[0]
         nfe_ms = {"http": [out["ms_per_nfe"]], "submit": [], "restore": [], "runner": []}
-        order = ("submit", "restore", "runner", "runner", "restore", "submit", "http")
+        order = ("submit", "restore", "runner")
         for kind in order:
             restores.clear()
             t0 = time.perf_counter()
@@ -1753,6 +1787,378 @@ def metrics_phase(dev, cli_main, task_psnr: dict, task_launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase export
+# ---------------------------------------------------------------------------
+
+# a fresh serving process: load a bundle, run it once, report (run as
+# ``python -c``; ``poison`` makes any kernel build raise)
+BOOT_SCRIPT = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+import numpy as np
+from diffpir_tpu_torch.kernels import build
+builds = []
+real_build = build.build
+def counted():
+    builds.append(1)
+    if {poison!r}:
+        raise RuntimeError("a kernel build (nvcc) in a sidecar boot")
+    return real_build()
+build.build = counted
+from diffpir_tpu_torch.export import load_bundle
+t1 = time.perf_counter()
+loaded = load_bundle({path!r}, use_aot={poison!r})
+t2 = time.perf_counter()
+with np.load({inputs!r}) as z:
+    out = loaded(z["y"], mask=z["mask"], seed=int(z["seed"]))
+t3 = time.perf_counter()
+np.save({output!r}, out)
+bad = sorted(m for m in sys.modules if m.startswith({modules!r}))
+print(json.dumps(dict(boot_timings=loaded.boot_timings, import_s=t1 - t0,
+                      load_s=t2 - t1, first_call_s=t3 - t2, builds=len(builds),
+                      model_modules=bad)))
+"""
+
+
+def start_fresh_boot(root: str, path: str, inputs: str, output: str, sidecar: bool):
+    """A fresh serving process that boots from the bundle, without the
+    sidecar or with it (and then any kernel build raises); returns (the
+    process, its start time) for ``finish_fresh_boot``."""
+    code = BOOT_SCRIPT.format(root=root, path=path, inputs=inputs, output=output,
+                              poison=sidecar, modules=MODEL_MODULES)
+    return (subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=REPO),
+            time.perf_counter())
+
+
+def finish_fresh_boot(started) -> dict:
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh boot failed:\n{out}\n{err}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res["process_wall_s"] = wall
+    return res
+
+
+def export_phase(dev, root: str) -> dict:
+    """Phase export (see the module docstring).  Returns what the record
+    line and the log report."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.data import make_batches, prepare_images
+    from diffpir_tpu_torch.export import LoadedRestore, load_bundle, program_report, save_bundle
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.kernels.build import BUILD_DIR
+    from diffpir_tpu_torch.models.unet import AttentionBlock, GroupNorm32
+    from diffpir_tpu_torch.parallel.multihost import free_port
+    from diffpir_tpu_torch.runner import Runner
+    from diffpir_tpu_torch.serve import RestorationService
+    from diffpir_tpu_torch.utils import image as im
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="export_", dir=BUILD_DIR)
+    out: dict = {"launches": {}}
+    over = {"save_E": False, "save_L": False}
+
+    def per_forward(model):
+        mods = list(model.modules())
+        return {"groupnorm_silu": sum(isinstance(m, GroupNorm32) for m in mods),
+                "legacy_qkv_attention": sum(isinstance(m, AttentionBlock) for m in mods)}
+
+    def bundle_vs_live(name, runner, batch, **save_kw):
+        """Export, check the graph, run bundle and live at one seed; returns
+        (path, loaded, live images, bundle images, record)."""
+        cfg = runner.cfg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_bundle(runner, os.path.join(work, name), batch=cfg.batch_size,
+                           height=batch.img_L.shape[1], width=batch.img_L.shape[2],
+                           kernel_hw=tuple(batch.kernel.shape[1:]), platforms=("cuda",),
+                           **save_kw)
+        export_s = time.perf_counter() - t0
+        loaded = load_bundle(path, device=dev)
+        rep = program_report(loaded.programs["step"])
+        pf = per_forward(runner.model)
+        if (rep["plain_nodes"] or rep["groupnorm_silu"] != pf["groupnorm_silu"]
+                or rep["legacy_qkv_attention"] != pf["legacy_qkv_attention"]):
+            raise AssertionError(f"{name}: the step program holds {rep}; a forward calls "
+                                 f"{pf}")
+        nfe = forwards_per_batch(cfg)
+        want = {k: v * nfe for k, v in pf.items()}
+        LAUNCHES.clear()
+        live = runner.restore_batch(batch, seed=cfg.seed)
+        live_launches = dict(LAUNCHES)
+        LAUNCHES.clear()
+        got = loaded(batch.img_L, kernel=batch.kernel, mask=batch.mask, seed=cfg.seed)
+        torch.cuda.synchronize()
+        bundle_launches = dict(LAUNCHES)
+        if live_launches != want or bundle_launches != want:
+            raise AssertionError(f"{name}: launches live {live_launches}, bundle "
+                                 f"{bundle_launches}, expected {want}")
+        if got.shape != live.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: bundle output {got.shape}, finite "
+                                 f"{np.isfinite(got).all()}")
+        gt = batch.img_H.astype(np.float32) / 255.0
+        psnr_live = im.psnr_batch(live * 2 - 1, gt * 2 - 1)
+        psnr_bundle = im.psnr_batch(got * 2 - 1, gt * 2 - 1)
+        rec = dict(export_s=export_s, program_bytes=os.path.getsize(
+            os.path.join(path, "program.pt2")), params_bytes=os.path.getsize(
+            os.path.join(path, "params.npz")), nfe=nfe, step_report=rep,
+            max_abs_diff=float(np.abs(got - live).max()),
+            bit_equal=bool(np.array_equal(got, live)), psnr_live=psnr_live,
+            psnr_bundle=psnr_bundle, launches=bundle_launches,
+            weights=runner.weights_provenance, boot_timings=dict(loaded.boot_timings))
+        out["launches"][name] = bundle_launches
+        log(f"export {name}: exported in {export_s:.3f}s (program {rec['program_bytes']} "
+            f"bytes, params {rec['params_bytes']} bytes); step program "
+            f"{rep['groupnorm_silu']} groupnorm_silu + {rep['legacy_qkv_attention']} "
+            f"legacy_qkv_attention nodes, {rep['plain_nodes']} plain-version nodes, "
+            f"{rep['call_function']} calls; bundle vs live max |diff| "
+            f"{rec['max_abs_diff']:.3e} (bit-equal {rec['bit_equal']}), PSNR bundle "
+            f"{psnr_bundle:.4f} live {psnr_live:.4f} dB; launches {bundle_launches} "
+            f"({nfe} forwards); boot {loaded.boot_timings}")
+        return path, loaded, live, got, rec
+
+    try:
+        # demo256 inpaint: the trained 54M prior, bf16, b4, 100 NFE, (lambda,
+        # zeta) at call time
+        cfg = load_config("configs/demo256_inpaint.yaml", over)
+        runner = Runner(cfg, device=dev)
+        if runner.weights_provenance != "demo":
+            raise AssertionError(f"demo256 weights {runner.weights_provenance!r}")
+        np.random.seed(cfg.seed)
+        batch = make_batches(prepare_images(cfg), cfg.batch_size)[0]
+        path, loaded, live, got, rec = bundle_vs_live("demo256_inpaint", runner, batch,
+                                                      dynamic_point=True)
+        if not abs(rec["psnr_bundle"] - rec["psnr_live"]) <= EXPORT_PSNR_TOL_DB:
+            raise AssertionError(f"demo256 bundle PSNR {rec['psnr_bundle']} vs live "
+                                 f"{rec['psnr_live']}")
+        # ms per NFE, the bundle and the live runner in turns (no bar): wall
+        # time of the fetched restore, and the card's time between events
+        ms = {"bundle": [], "live": [], "bundle_device": [], "live_device": []}
+        for kind in ("bundle", "live", "live", "bundle"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            if kind == "live":
+                runner.restore_batch(batch, seed=cfg.seed)
+            else:
+                loaded(batch.img_L, mask=batch.mask, seed=cfg.seed)
+            end.record()
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / rec["nfe"])
+            ms[kind + "_device"].append(start.elapsed_time(end) / rec["nfe"])
+        rec["ms_per_nfe"] = ms
+        log(f"export demo256_inpaint: ms per NFE (wall; between events) bundle "
+            f"{ms['bundle']}; {ms['bundle_device']} live {ms['live']}; {ms['live_device']}")
+        # the operator's host cost against the wrapper's, one GroupNorm call
+        # of a DEMO256 shape, 200 back-to-back calls each
+        from diffpir_tpu_torch.kernels.groupnorm import groupnorm_silu
+
+        gx = torch.zeros((4, 64, 64, 128), device=dev, dtype=torch.bfloat16)
+        gs, gb = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+        host_us = {}
+        for kind, fn in (("wrapper", lambda: groupnorm_silu(gx, gs, gb)),
+                         ("operator", lambda: torch.ops.diffpir_tpu_torch.groupnorm_silu(
+                             gx, gs, gb, None, None, 32, 1e-5, True))):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us[kind] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        rec["groupnorm_host_us_per_call"] = host_us
+        log(f"export: groupnorm_silu host us per call, wrapper {host_us['wrapper']:.2f}, "
+            f"operator {host_us['operator']:.2f}")
+        if min(ms["bundle"]) > 1.25 * min(ms["live"]):
+            # where a slow bundle's host time goes: one call under cProfile
+            import cProfile
+            import io as _io
+            import pstats
+
+            prof = cProfile.Profile()
+            prof.enable()
+            loaded(batch.img_L, mask=batch.mask, seed=cfg.seed)
+            prof.disable()
+            text = _io.StringIO()
+            pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(15)
+            import threading
+            import traceback as tb
+
+            others = {tid: "".join(tb.format_stack(fr))[-1200:]
+                      for tid, fr in sys._current_frames().items()
+                      if tid != threading.get_ident()}
+            log("export demo256_inpaint: the bundle is slower than the live runner; "
+                "cProfile of one call:\n" + text.getvalue() + f"\nother threads "
+                f"{[t.name for t in threading.enumerate()]}: {json.dumps(others)}")
+            # the caching allocator's traffic during one call of each, then
+            # the bundle again after emptying the cache
+            def alloc_stats(fn):
+                keys = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+                        "num_sync_all_streams")
+                before = torch.cuda.memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                after = torch.cuda.memory_stats()
+                return dict({k: after.get(k, 0) - before.get(k, 0) for k in keys},
+                            ms_per_nfe=(time.perf_counter() - t0) * 1e3 / rec["nfe"],
+                            reserved=after.get("reserved_bytes.all.current", 0),
+                            allocated=after.get("allocated_bytes.all.current", 0))
+
+            bundle_call = lambda: loaded(batch.img_L, mask=batch.mask,  # noqa: E731
+                                         seed=cfg.seed)
+            stats = {"bundle": alloc_stats(bundle_call),
+                     "live": alloc_stats(lambda: runner.restore_batch(batch, seed=cfg.seed))}
+            torch.cuda.empty_cache()
+            stats["bundle after empty_cache"] = alloc_stats(bundle_call)
+            log(f"export demo256_inpaint: allocator during one call: {json.dumps(stats)}")
+            # the card's time against the host's, one call of each under
+            # torch.profiler
+            from torch.profiler import ProfilerActivity, profile
+
+            for kind, fn in (("bundle", lambda: loaded(batch.img_L, mask=batch.mask,
+                                                       seed=cfg.seed)),
+                             ("live", lambda: runner.restore_batch(batch, seed=cfg.seed))):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                table = prof.key_averages().table(sort_by="self_cpu_time_total",
+                                                  row_limit=12)
+                log(f"export demo256_inpaint: torch.profiler, one {kind} call:\n{table}")
+        del runner
+        torch.cuda.empty_cache()
+
+        # three fresh processes, started together once the sidecar is
+        # written: a boot without the sidecar, one with it (no kernel build),
+        # and the HTTP server booted from the bundle
+        inputs = os.path.join(work, "inputs.npz")
+        np.savez(inputs, y=batch.img_L, mask=batch.mask, seed=cfg.seed)
+        t0 = time.perf_counter()
+        sidecar = LoadedRestore(path, use_aot=False, device=dev).save_aot()
+        aot_s = time.perf_counter() - t0
+        starts = {kind: start_fresh_boot(root, path, inputs,
+                                         os.path.join(work, f"{kind}.npy"), kind == "sidecar")
+                  for kind in ("cold", "sidecar")}
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, REPO]))
+        server = subprocess.Popen([sys.executable, "-m", "diffpir_tpu_torch.server_http",
+                                   "--bundle", path, "--port", str(port)], cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        url = f"http://127.0.0.1:{port}"
+        try:
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    with opener.open(url + "/healthz", timeout=5) as r:
+                        health = json.loads(r.read())
+                    break
+                except OSError:
+                    if server.poll() is not None or time.perf_counter() - t0 > 300:
+                        raise AssertionError("the --bundle server did not come up: "
+                                             + (server.stdout.read() if server.poll()
+                                                is not None else "timeout"))
+                    time.sleep(0.2)
+            up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            code, ctype, body = http_post(opener, url + "/restore",
+                                          npz_bytes(image=batch.img_L[0], mask=batch.mask[0]),
+                                          "application/x-npz")
+            req_s = time.perf_counter() - t0
+        finally:
+            server.terminate()
+            server.wait(timeout=60)
+            if sys.exc_info()[0] is not None:
+                for proc, _ in starts.values():  # the boots, on a failure
+                    proc.kill()
+                    proc.wait()
+        boots = {kind: finish_fresh_boot(st) for kind, st in starts.items()}
+        for kind, b in boots.items():
+            same = bool(np.array_equal(np.load(os.path.join(work, f"{kind}.npy")), got))
+            b["equal_to_in_process"] = same
+            log(f"export demo256_inpaint boot {kind}: {json.dumps(b)}")
+            if b["model_modules"] or not same:
+                raise AssertionError(f"{kind} boot imported {b['model_modules']}, output "
+                                     f"equal {same}")
+        if ("aot_load_s" not in boots["sidecar"]["boot_timings"]
+                or "aot_load_s" in boots["cold"]["boot_timings"]):
+            raise AssertionError("the boots did not take the sidecar as asked")
+        rec["boots"] = boots
+        rec["save_aot_s"] = aot_s
+        log(f"export demo256_inpaint: save_aot wrote {os.path.basename(sidecar)} in "
+            f"{aot_s:.3f}s; the sidecar boot made {boots['sidecar']['builds']} kernel builds")
+        out["demo256_inpaint"] = rec
+        if code != 200:
+            raise AssertionError(f"--bundle server: {code} {body[:200]!r}")
+        import io
+
+        with np.load(io.BytesIO(body)) as z:
+            served = z["restored"]
+        svc = RestorationService(bundle_path=path)
+        # the server's worker gives its first launch the seed block 1 << 12
+        (want,) = svc.restore([batch.img_L[0]], masks=[batch.mask[0]], seed=1 << 12)
+        svc.close()
+        http_diff = float(np.abs(served - want).max())
+        out["http"] = dict(up_s=up_s, request_s=req_s, max_abs_diff=http_diff,
+                           health=health)
+        log(f"export: server_http --bundle up in {up_s:.3f}s (boot with the sidecar, beside "
+            f"the two fresh boots), one POST /restore in {req_s:.3f}s, max |served - "
+            f"service.restore| {http_diff:.3e}")
+        if not http_diff <= 1e-6:
+            raise AssertionError(f"the --bundle server's answer differs by {http_diff}")
+        del loaded, svc
+        torch.cuda.empty_cache()
+
+        # demo64 deblur: fp32, the Levin k0 PSF, the FFT prox's spectra from
+        # the prologue
+        dcfg = load_config("configs/demo64_deblur.yaml", over)
+        runner = Runner(dcfg, device=dev)
+        np.random.seed(dcfg.seed)
+        dbatch = make_batches(prepare_images(dcfg), dcfg.batch_size)[0]
+        *_, rec = bundle_vs_live("demo64_deblur", runner, dbatch)
+        if not rec["max_abs_diff"] <= EXPORT_DEBLUR_ATOL:
+            raise AssertionError(f"demo64 deblur bundle differs by {rec['max_abs_diff']}")
+        out["demo64_deblur"] = rec
+        del runner
+
+        # the diffusion_ffhq_10m topology at full width: 95M, seeded random
+        # weights, bf16, b4, 256 px, 4 NFE
+        fcfg = load_config("configs/demo256_inpaint.yaml", {
+            **over, "model_name": "diffusion_ffhq_10m", "iter_num": EXPORT_FFHQ_ITER})
+        runner = Runner(fcfg, device=dev)
+        *_, rec = bundle_vs_live("ffhq_inpaint", runner, batch, allow_random_weights=True)
+        if not abs(rec["psnr_bundle"] - rec["psnr_live"]) <= EXPORT_PSNR_TOL_DB:
+            raise AssertionError(f"ffhq bundle PSNR {rec['psnr_bundle']} vs live "
+                                 f"{rec['psnr_live']}")
+        out["ffhq_inpaint"] = rec
+        del runner
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase parallel: what the ranks run (each rank a process on the one card)
 # ---------------------------------------------------------------------------
 
@@ -1802,8 +2208,8 @@ def _is_rank0() -> bool:
 
 def parallel_pair(work: str) -> dict:
     """Two ranks (or, with no group, the unsharded reference): the 553M
-    model under tp = 2 (one forward, a 4-NFE inpaint restore) and DEMO256
-    under sp = 2 (a 4-NFE inpaint restore)."""
+    model under tp = 2 (one forward, a 4-NFE inpaint restore), DEMO256
+    under sp = 2 (a 4-NFE inpaint restore) and ``parallel_bundle``."""
     import torch
     import torch.distributed as dist
 
@@ -1838,6 +2244,9 @@ def parallel_pair(work: str) -> dict:
         np.save(os.path.join(work, f"sp256_{tag}_restore.npy"), out)
     res["sp256"] = dict(ms_per_nfe=ms, peak_bytes=peak, param_bytes=params,
                         launches=launches, weights=runner.weights_provenance)
+    del runner
+    torch.cuda.empty_cache()
+    res["bundle"] = parallel_bundle(work)
     return res
 
 
@@ -1858,6 +2267,41 @@ def parallel_mesh8(work: str) -> dict:
     if _is_rank0():
         np.save(os.path.join(work, f"mesh8_{'ranks' if sharded else 'ref'}.npy"), out)
     return dict(ms_per_nfe=ms, peak_bytes=peak, param_bytes=params, launches=launches)
+
+
+def parallel_bundle(work: str) -> dict:
+    """On ``parallel_pair``'s two ranks: a bundle of the demo64 restore
+    (fp32, b2, 2 NFE) under data x model = 1 x 2, exported (rank 0 traces,
+    both gather the parameters), loaded and run on the group; with no
+    group, the same restore unsharded."""
+    import torch.distributed as dist
+
+    from diffpir_tpu_torch.export import load_bundle, save_bundle
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.parallel.multihost import rank_device
+    from diffpir_tpu_torch.runner import Runner, _dryrun_batch
+
+    sharded = dist.is_initialized()
+    dev = rank_device()
+    cfg = _parallel_cfg("inpaint", "demo64_hq", "float32", 2, PARALLEL_MESH3_ITER,
+                        (1, 2) if sharded else None, ("data", "model") if sharded else None)
+    batch = _dryrun_batch(np.random.default_rng(5), 2, 64, "inpaint")
+    runner = Runner(cfg, device=dev)
+    if not sharded:
+        np.save(os.path.join(work, "bundle_ref.npy"), runner.restore_batch(batch, seed=0))
+        return {}
+    t0 = time.perf_counter()
+    path = save_bundle(runner, os.path.join(work, "mesh_bundle"), batch=2, height=64,
+                       width=64, platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    loaded = load_bundle(path, device=dev)
+    LAUNCHES.clear()
+    out = loaded(batch.img_L, mask=batch.mask, seed=0)
+    launches = dict(LAUNCHES)
+    if _is_rank0():
+        np.save(os.path.join(work, "bundle_ranks.npy"), out)
+    return dict(export_s=export_s, launches=launches, mesh=loaded.manifest["mesh"]["shape"],
+                weights=runner.weights_provenance)
 
 
 def parallel_train() -> dict:
@@ -1974,6 +2418,19 @@ def parallel_phase(dev, root: str) -> dict:
             launches_rank0=mesh8[0]["launches"]))
         if not err <= DRYRUN_ATOL:
             raise AssertionError(f"demo64 2x2x2 differs from unsharded by {err}")
+        # the demo64 bundle under model = 2 (on the same two ranks)
+        err = float(np.abs(load("bundle_ranks.npy") - load("bundle_ref.npy")).max())
+        bund = [r["bundle"] for r in pair]
+        bundle_launches = bund[0]["launches"]
+        runs.append(dict(run="demo64_hq bundle, data x model = 1x2, fp32 b2 64px",
+                         backend="gloo (host-staged)", world=2, mesh={"data": 1, "model": 2},
+                         max_abs_err=err, export_s=[r["export_s"] for r in bund],
+                         launches_rank0=bundle_launches, weights=bund[0]["weights"]))
+        want = {"groupnorm_silu": 44 * (PARALLEL_MESH3_ITER - 1),
+                "legacy_qkv_attention": PARALLEL_MESH3_ITER - 1}
+        if not err <= DRYRUN_ATOL or bundle_launches != want:
+            raise AssertionError(f"demo64 model=2 bundle: {err} from unsharded, launches "
+                                 f"{bundle_launches} (expected {want})")
         # the sharded train step
         train = spawn("chip_smoke:parallel_train", 4, [], env=env, timeout=600)
         ref_loss = dryrun_train_step(1)
@@ -2009,7 +2466,7 @@ def parallel_phase(dev, root: str) -> dict:
             "(8 ranks), rank start-up included")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(runs=runs, sp_launches=sp_launches)
+    return dict(runs=runs, sp_launches=sp_launches, bundle_launches=bundle_launches)
 
 
 def timed_host_ms(fn, iters: int = 5) -> float:
@@ -2573,6 +3030,9 @@ def run(argv: list[str]) -> int:
                                 per_fwd)
         serve_launches = serve_out["launches"]
 
+    with phase("export"):
+        export_out = export_phase(dev, root)
+
     with phase("train"):
         train_out = train_phase(dev, root)
 
@@ -2610,7 +3070,11 @@ def run(argv: list[str]) -> int:
                                   "variants superres forward":
                                       variants_out["superres_launches"].get(name, 0),
                                   "metrics demo256_inpaint":
-                                      metrics_out["launches"].get(name, 0)},
+                                      metrics_out["launches"].get(name, 0),
+                                  **{f"export {b} bundle": n.get(name, 0)
+                                     for b, n in export_out["launches"].items()},
+                                  "parallel demo64 model=2 bundle rank 0":
+                                      parallel_out["bundle_launches"].get(name, 0)},
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
@@ -2657,6 +3121,7 @@ def run(argv: list[str]) -> int:
                         "F.group_norm + FiLM + F.silu (statistics included)")})
     record["parallel"] = parallel_out["runs"]
     log("serve: " + json.dumps(serve_out))
+    log("export: " + json.dumps(export_out))
     log("train: " + json.dumps(train_out))
     log(json.dumps(record))
     log(card)

@@ -1,10 +1,35 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the port's operators."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+# the namespace of the port's operators, torch.ops.diffpir_tpu_torch.*
+OPS_NAMESPACE = "diffpir_tpu_torch"
+_LIB = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
+# (operator name, dispatch key) -> the implementation define_op registered
+OP_IMPLS: dict[tuple[str, str], Callable] = {}
+
+
+def define_op(schema: str, impls: dict[str, Callable], fake: Callable) -> None:
+    """Define the operator ``torch.ops.diffpir_tpu_torch.<name>`` from its
+    schema, one implementation per dispatch key (``"CPU"``, ``"CUDA"``) and
+    a fake implementation that gives the output's shape and type (what a
+    ``torch.export`` trace runs).  Registered directly with the dispatcher:
+    ``torch.library.custom_op`` wraps each call in Python layers (autograd,
+    aliasing checks) that on the card's host cost about as much again as the
+    kernel's own wrapper (PERF.md §6, PR 12).  No autograd formula: the
+    programs that call these operators run without gradients."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    for key, fn in impls.items():
+        _LIB.impl(name, fn, key)
+        OP_IMPLS[(name, key)] = fn
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake, lib=_LIB)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,

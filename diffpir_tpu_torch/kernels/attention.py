@@ -16,6 +16,12 @@ kernel for a CUDA tensor; it never falls back from one to the other.  Where a
 gradient is asked for (grad mode on and qkv requires one), the CUDA launch
 runs inside ``LegacyQKVAttentionFunction``, whose backward is in PyTorch
 operations (the TPU kernel has no backward kernel to port).
+
+The same function is the operator
+``torch.ops.diffpir_tpu_torch.legacy_qkv_attention`` (``_common.define_op``;
+CPU: the plain version; CUDA: ``_launch``; a fake one for the shapes), which the
+wrapper emits inside a ``torch.export`` trace; an eager call keeps the
+direct path.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from diffpir_tpu_torch.kernels import LAUNCHES
 from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                check_cuda_tensor,
-                                               current_stream_handle,
+                                               current_stream_handle, define_op,
                                                raise_on_error, wants_grad)
 
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
@@ -154,6 +160,8 @@ class LegacyQKVAttentionFunction(torch.autograd.Function):
 
 def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """qkv: (B, T, 3*C) with layout [head][q|k|v][head_dim] -> (B, T, C)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.diffpir_tpu_torch.legacy_qkv_attention(qkv, num_heads)
     if qkv.device.type == "cpu":
         return legacy_qkv_attention_plain(qkv, num_heads)
     if qkv.device.type != "cuda":
@@ -161,3 +169,13 @@ def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if wants_grad(qkv):
         return LegacyQKVAttentionFunction.apply(qkv, num_heads)
     return _launch(qkv, num_heads)
+
+
+def _legacy_qkv_attention_fake(qkv, num_heads):
+    b, t, w = qkv.shape
+    return qkv.new_empty((b, t, w // 3))
+
+
+define_op("legacy_qkv_attention(Tensor qkv, int num_heads) -> Tensor",
+          {"CPU": legacy_qkv_attention_plain, "CUDA": _launch},
+          _legacy_qkv_attention_fake)

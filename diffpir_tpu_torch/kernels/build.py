@@ -7,6 +7,11 @@ them into ``.kernel_build/libdiffpir_kernels.so`` at the root of the
 repository.  The library is built at first use and again whenever a source,
 the flags or the compiler path change (a hash of them is stored beside it).
 Nothing here runs when the module is imported.
+
+``use_library(path, digest)`` loads a library built elsewhere (a bundle's
+sidecar, ``export.LoadedRestore.save_aot``) in place of a build, when
+``digest`` equals ``library_digest()`` of these sources, flags and torch
+version; otherwise it loads nothing, and the first launch builds as usual.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import threading
 import time
 
 __all__ = ["BUILD_DIR", "BuildInfo", "find_nvcc", "build", "load_library",
-           "spill_bytes"]
+           "spill_bytes", "library_digest", "use_library", "library_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -118,6 +123,7 @@ def _run_all(cmds: list[list[str]]) -> str:
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_path: str | None = None
 
 
 def build() -> BuildInfo:
@@ -155,16 +161,53 @@ def build() -> BuildInfo:
     return BuildInfo(lib_path, True, time.perf_counter() - t0, log)
 
 
+def library_digest() -> str:
+    """A hash of the sources, the flags (the target, sm_90a, among them) and
+    the torch version: what a library built elsewhere must match."""
+    import torch
+
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(torch.__version__.encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _open(path: str) -> ctypes.CDLL:
+    global _lib, _lib_path
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib, _lib_path = lib, path
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
-    global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build().path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        return _lib if _lib is not None else _open(build().path)
+
+
+def use_library(path: str, digest: str) -> bool:
+    """Load the library at ``path`` instead of building one, if ``digest``
+    is ``library_digest()``; returns whether it did (a library already
+    loaded in this process stays)."""
+    with _lock:
+        if _lib is not None:
+            return True
+        if digest != library_digest():
+            return False
+        _open(path)
+        return True
+
+
+def library_path() -> str:
+    """The path of the library this process loaded (building it if needed)."""
+    load_library()
+    return _lib_path
 

@@ -23,6 +23,14 @@ for a CUDA tensor; it never falls back from one to the other.  Where a
 gradient is asked for (grad mode on and an input that requires one), the
 CUDA launch runs inside ``GroupNormSiLUFunction``, whose backward is in
 PyTorch operations (the TPU kernel has no backward kernel to port).
+
+The same function is the operator ``torch.ops.diffpir_tpu_torch.groupnorm_silu``
+(``_common.define_op``): its CPU implementation is the plain version,
+its CUDA implementation ``_launch``, and its fake implementation gives the
+output's shape and type.  Inside a ``torch.export`` trace the wrapper emits
+the operator, so an exported program holds one opaque node per call (and no
+plain-version subgraph); an eager call keeps the direct path, without the
+operator's dispatch.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch.nn.functional as F
 from diffpir_tpu_torch.kernels import LAUNCHES
 from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                check_cuda_tensor,
-                                               current_stream_handle,
+                                               current_stream_handle, define_op,
                                                raise_on_error, wants_grad)
 
 __all__ = ["groupnorm_silu", "groupnorm_silu_plain", "GroupNormSiLUFunction",
@@ -230,6 +238,9 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
     scale, bias: (C,) fp32; film_scale, film_shift: optional (B, C) fp32.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.diffpir_tpu_torch.groupnorm_silu(
+            x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, scale, bias, film_scale, film_shift,
                                     num_groups=num_groups, eps=eps,
@@ -240,6 +251,18 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return GroupNormSiLUFunction.apply(x, scale, bias, film_scale, film_shift,
                                            num_groups, eps, do_silu)
     return _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
+
+
+def _groupnorm_silu_fake(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+define_op("groupnorm_silu(Tensor x, Tensor scale, Tensor bias, Tensor? film_scale, "
+          "Tensor? film_shift, int num_groups, float eps, bool do_silu) -> Tensor",
+          {"CPU": lambda x, scale, bias, fs, fb, g, eps, silu: groupnorm_silu_plain(
+              x, scale, bias, fs, fb, num_groups=g, eps=eps, do_silu=silu),
+           "CUDA": _launch},
+          _groupnorm_silu_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -230,16 +230,13 @@ class ResBlock(nn.Module):
         if self.tp is None:
             return self.emb_proj(e).to(dtype)
         mesh, axis = self.tp
-        n, r = mesh.axis_size(axis), mesh.axis_index(axis)
         if self.emb_sharded:
-            k = e.shape[-1] // n
-            full = _row_parallel(self.emb_proj, e[:, r * k:(r + 1) * k], mesh, axis)
+            full = _row_parallel(self.emb_proj, _coll.axis_block(e, mesh, axis), mesh, axis)
         else:
             full = self.emb_proj(e)
         full = full.to(dtype)
         halves = full.chunk(2, dim=-1) if self.use_scale_shift_norm else (full,)
-        c = halves[0].shape[-1] // n
-        return torch.cat([v[:, r * c:(r + 1) * c] for v in halves], dim=-1)
+        return torch.cat([_coll.axis_block(v, mesh, axis) for v in halves], dim=-1)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.norm1(x)

@@ -24,6 +24,14 @@ Under an abstract mesh, or for a tensor on the ``meta`` device, nothing is
 sent: the result has the right shape on ``meta`` and the collective is
 recorded in ``mesh.log`` (when it is a list) as (op, axis, bytes moved per
 rank), which is what ``Runner.lower_restore`` reports.
+
+Inside a ``torch.export`` trace, ``all_reduce_sum``, ``all_gather`` and
+``axis_block`` (this rank's block of a tensor) emit the operators
+``torch.ops.diffpir_tpu_torch.all_reduce_sum`` / ``all_gather`` /
+``axis_block``, which take the axis's name and size, so the program's shapes
+are static and it holds no rank's index: at run time each looks the axis up
+in ``parallel.mesh.current_mesh()`` and runs the function above on it.
+``halo_rows`` has no operator (bundles over a ``space`` axis are refused).
 """
 
 from __future__ import annotations
@@ -33,9 +41,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from diffpir_tpu_torch.parallel.mesh import Mesh
+from diffpir_tpu_torch.kernels._common import define_op
+from diffpir_tpu_torch.parallel.mesh import Mesh, current_mesh
 
-__all__ = ["all_reduce_sum", "all_gather", "halo_rows", "host_staged"]
+__all__ = ["all_reduce_sum", "all_gather", "axis_block", "halo_rows", "host_staged"]
 
 
 def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
@@ -58,6 +67,8 @@ def all_reduce_sum(t: torch.Tensor, mesh: Optional[Mesh], axis: str) -> torch.Te
     n = 1 if mesh is None else mesh.axis_size(axis)
     if n == 1:
         return t
+    if torch.compiler.is_exporting():
+        return torch.ops.diffpir_tpu_torch.all_reduce_sum(t, axis, n)
     _record(mesh, "all_reduce", axis, _nbytes(t))
     if mesh.abstract or t.device.type == "meta":
         return torch.empty_like(t)
@@ -78,6 +89,8 @@ def all_gather(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
     n = 1 if mesh is None else mesh.axis_size(axis)
     if n == 1:
         return t
+    if torch.compiler.is_exporting():
+        return torch.ops.diffpir_tpu_torch.all_gather(t, axis, n, dim)
     _record(mesh, "all_gather", axis, _nbytes(t) * (n - 1))
     if mesh.abstract or t.device.type == "meta":
         shape = list(t.shape)
@@ -90,6 +103,61 @@ def all_gather(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def axis_block(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
+               dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim``: the r-th of the axis's n
+    equal blocks (a view)."""
+    n = 1 if mesh is None else mesh.axis_size(axis)
+    if n == 1:
+        return t
+    if torch.compiler.is_exporting():
+        return torch.ops.diffpir_tpu_torch.axis_block(t, axis, n, dim)
+    k = t.shape[dim] // n
+    return t.narrow(dim, mesh.axis_index(axis) * k, k)
+
+
+def _mesh_for(axis: str, n: int) -> Mesh:
+    mesh = current_mesh()
+    if mesh.axis_size(axis) != n:
+        raise RuntimeError(f"the program was exported for a {axis!r} axis of {n} ranks; "
+                           f"this process's mesh has {mesh.axis_size(axis)}")
+    return mesh
+
+
+def _all_reduce_sum_op(t, axis, n):
+    return all_reduce_sum(t, _mesh_for(axis, n), axis)
+
+
+def _all_gather_op(t, axis, n, dim):
+    return all_gather(t, _mesh_for(axis, n), axis, dim)
+
+
+def _all_gather_fake(t, axis, n, dim):
+    shape = list(t.shape)
+    shape[dim] *= n
+    return t.new_empty(shape)
+
+
+def _axis_block_op(t, axis, n, dim):
+    return axis_block(t, _mesh_for(axis, n), axis, dim).clone()
+
+
+def _axis_block_fake(t, axis, n, dim):
+    shape = list(t.shape)
+    shape[dim] //= n
+    return t.new_empty(shape)
+
+
+for _schema, _fn, _fake in (
+        ("all_reduce_sum(Tensor t, str axis, int n) -> Tensor", _all_reduce_sum_op,
+         lambda t, axis, n: torch.empty_like(t)),
+        ("all_gather(Tensor t, str axis, int n, int dim) -> Tensor", _all_gather_op,
+         _all_gather_fake),
+        ("axis_block(Tensor t, str axis, int n, int dim) -> Tensor", _axis_block_op,
+         _axis_block_fake)):
+    define_op(_schema, {"CPU": _fn, "CUDA": _fn}, _fake)
 
 
 def halo_rows(x: torch.Tensor, mesh: Optional[Mesh], axis: str, top: int,

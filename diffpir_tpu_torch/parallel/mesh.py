@@ -26,9 +26,27 @@ import numpy as np
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "abstract_mesh", "shard_batch", "shard_image",
-           "replicate", "AXES"]
+           "shard_tensor", "replicate", "current_mesh", "set_current_mesh", "AXES"]
 
 AXES = ("data", "model", "space")
+
+# the mesh the collective operators of an exported program run over
+# (parallel/collectives.py): the last one ``make_mesh`` made, or the one a
+# loaded bundle set
+_CURRENT: Optional["Mesh"] = None
+
+
+def current_mesh() -> "Mesh":
+    """The mesh whose process groups the collective operators use; raises
+    when no mesh has been made in this process."""
+    if _CURRENT is None:
+        raise RuntimeError("no device mesh in this process: make one with make_mesh")
+    return _CURRENT
+
+
+def set_current_mesh(mesh: Optional["Mesh"]) -> None:
+    global _CURRENT
+    _CURRENT = mesh
 
 
 class Mesh:
@@ -113,7 +131,9 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     host = None
     if world > 1:
         host = dist.new_group(backend="gloo") if backend != "gloo" else dist.group.WORLD
-    return Mesh(dict(zip(axes, shape)), coords, groups, host_group=host, backend=backend)
+    mesh = Mesh(dict(zip(axes, shape)), coords, groups, host_group=host, backend=backend)
+    set_current_mesh(mesh)
+    return mesh
 
 
 def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str],
@@ -151,6 +171,18 @@ def shard_image(arr, mesh: Mesh, data_axis: Optional[str] = "data",
     rows = _rows(arr.shape[1], mesh.axis_size(space_axis), mesh.axis_index(space_axis),
                  "image height")
     return arr[:, rows]
+
+
+def shard_tensor(t, spec, mesh: Mesh):
+    """This rank's block of ``t`` under ``spec``: per dim the mesh axis it is
+    split over (None for none; ``()`` replicates), rank r of an axis of n
+    taking the r-th of n equal blocks (``parallel/tp.py``'s specs)."""
+    for dim, axis in enumerate(spec):
+        n = mesh.axis_size(axis)
+        if n > 1:
+            t = t[(slice(None),) * dim + (_rows(t.shape[dim], n, mesh.axis_index(axis),
+                                                f"dim {dim}"),)]
+    return t
 
 
 def replicate(tree, mesh: Mesh):

@@ -43,7 +43,7 @@ from typing import Any, Dict, Mapping
 import torch
 
 from diffpir_tpu_torch.models.unet import AttentionBlock, ResBlock, UNet, UNetConfig
-from diffpir_tpu_torch.parallel.mesh import Mesh
+from diffpir_tpu_torch.parallel.mesh import Mesh, shard_tensor
 
 __all__ = ["unet_tp_specs", "shard_unet_params", "tp_param_report", "nest"]
 
@@ -150,11 +150,8 @@ def tp_param_report(state: Mapping[str, Any], cfg: UNetConfig, n_model: int,
     return {"total": total, "sharded": sharded, "fraction": sharded / max(total, 1)}
 
 
-def _slice(p: torch.Tensor, spec: tuple, n: int, r: int) -> torch.Tensor:
-    for dim, ax in enumerate(spec):
-        if ax is not None:
-            size = p.shape[dim] // n
-            p = p.narrow(dim, r * size, size)
+def _slice(p: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    p = shard_tensor(p, spec, mesh)
     if p.ndim == 4:
         return p.contiguous(memory_format=torch.channels_last)
     return p.contiguous()
@@ -165,12 +162,16 @@ def shard_unet_params(model: UNet, mesh: Mesh, cfg: UNetConfig = None,
     """Make ``model`` (holding the full parameters) this rank's shard of the
     UNet under ``mesh``'s ``axis``, in place, and return it: each sharded
     parameter becomes this rank's slice, and each sharded block is told its
-    mesh, so that its forward runs the all-reduces (``models/unet.py``)."""
+    mesh, so that its forward runs the all-reduces (``models/unet.py``).
+    ``model.param_specs`` then maps each parameter's name to its spec."""
     cfg = model.cfg if cfg is None else cfg
-    n, r = mesh.axis_size(axis), mesh.axis_index(axis)
+    n = mesh.axis_size(axis)
     if n == 1:
         return model
     specs = unet_tp_specs(model.state_dict(), cfg, n, axis)
+    # every parameter's spec by name, as export.save_bundle records them
+    model.param_specs = {".".join((name,) + path): s for name, spec in specs.items()
+                         for path, s in _leaves(spec)}
     for name, spec in specs.items():
         block = getattr(model, name)
         if not isinstance(block, (ResBlock, AttentionBlock)):
@@ -185,7 +186,7 @@ def shard_unet_params(model: UNet, mesh: Mesh, cfg: UNetConfig = None,
             for p in path[:-1]:
                 mod = getattr(mod, p)
             old = getattr(mod, path[-1])
-            setattr(mod, path[-1], torch.nn.Parameter(_slice(old.detach(), s, n, r),
+            setattr(mod, path[-1], torch.nn.Parameter(_slice(old.detach(), s, mesh),
                                                       requires_grad=old.requires_grad))
         emb_sharded = isinstance(block, ResBlock) and any(
             d is not None for d in flat[("emb_proj", "weight")])

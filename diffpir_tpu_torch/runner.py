@@ -30,8 +30,9 @@ global batch's shape from the same generator and is sliced to the rank's
 rows, so a sharded trajectory sees the unsharded one's noise.
 ``lower_restore`` traces a restore on the ``meta`` device and reports this
 rank's parameter bytes, activation peaks and collectives; ``dryrun_restore``
-runs the JAX package's mesh dry run.  Still queued (ROADMAP.md queue A item
-9): AOT export, and with it the dry run's mesh-bundle stage.
+runs the JAX package's mesh dry run, its mesh-bundle stage included.
+``prox_state``/``prox_from_state`` and ``initial_x`` are the pieces of a
+restore that ``export.py`` traces into a bundle's programs.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from diffpir_tpu_torch.diffusion import Diffusion, ModelMeanType, ModelVarType
 from diffpir_tpu_torch.guidance import dps_sample, make_degrade_op, make_grad_prox
 from diffpir_tpu_torch.models.zoo import model_config_for, resolve_model
 from diffpir_tpu_torch.models.unet import UNet
-from diffpir_tpu_torch.ops.fft_prox import precompute
+from diffpir_tpu_torch.ops.fft_prox import ProxOperator, precompute
 from diffpir_tpu_torch.parallel import collectives as coll
 from diffpir_tpu_torch.parallel.mesh import abstract_mesh, make_mesh, shard_batch
 from diffpir_tpu_torch.sampler import (diffpir_sample, generator_noise, init_x,
@@ -261,25 +262,67 @@ class Runner:
             t_start=self.t_start, noise_model_t=self.noise_model_t,
             rho_mode="xstart" if xstart else "xprev")
 
-    def make_prox(self, y: torch.Tensor, kernel: Optional[torch.Tensor],
-                  mask: torch.Tensor):
-        """The task's data prox ``prox(x0, tau)`` for the observations ``y``:
-        the first-order gradient step (deblur and sr with
+    def uses_fft_prox(self) -> bool:
+        """Whether the task's prox is the FFT solve (deblur, sr blur and
+        classical, with the analytic prox)."""
+        cfg = self.cfg
+        return (cfg.sub_1_analytic and cfg.task != "inpaint"
+                and (cfg.task == "deblur" or cfg.sr_mode in ("blur", "classical")))
+
+    def prox_state(self, y: torch.Tensor, kernel: Optional[torch.Tensor],
+                   mask: torch.Tensor) -> tuple:
+        """The tensors the task's data prox is built from
+        (``prox_from_state``): the FFT solve's spectra (FB, FBC, F2B, FBFy),
+        else the observations it reads: (y, mask) for the masked average,
+        (y, kernel) for the first-order gradient step, (y,) for cubic
+        back-projection."""
+        cfg = self.cfg
+        if cfg.task in ("deblur", "sr") and not cfg.sub_1_analytic:
+            return (y, kernel)
+        if cfg.task == "inpaint":
+            return (y, mask)
+        if self.uses_fft_prox():
+            return tuple(precompute(y, kernel, cfg.sf)[:4])
+        return (y,)
+
+    def prox_from_state(self, state: tuple):
+        """The task's data prox ``prox(x0, tau)`` from ``prox_state``'s
+        tensors: the first-order gradient step (deblur and sr with
         ``sub_1_analytic=false``), the masked average (inpaint), the FFT
         solve (deblur, sr blur and classical) or cubic back-projection (sr
         cubic)."""
         cfg = self.cfg
         if cfg.task in ("deblur", "sr") and not cfg.sub_1_analytic:
+            y, kernel = state
             hr_hw = (y.shape[1] * cfg.sf, y.shape[2] * cfg.sf)
             op = make_degrade_op(cfg.task, kernel=kernel, hr_hw=hr_hw, sf=cfg.sf)
             return make_grad_prox(op, y if cfg.task == "deblur" else 2.0 * y - 1.0)
         if cfg.task == "inpaint":
-            return make_inpaint_prox(y, mask, cfg.guidance_scale)
-        if cfg.task == "deblur" or cfg.sr_mode in ("blur", "classical"):
-            return make_fft_prox(precompute(y, kernel, cfg.sf), cfg.guidance_scale)
+            return make_inpaint_prox(*state, cfg.guidance_scale)
+        if self.uses_fft_prox():
+            return make_fft_prox(ProxOperator(*state, sf=cfg.sf), cfg.guidance_scale)
+        (y,) = state
         hr_hw = (y.shape[1] * cfg.sf, y.shape[2] * cfg.sf)
         return make_cubic_sr_prox(y, cfg.sf, gamma=cfg.gamma, in_iter=cfg.inIter,
                                   hr_hw=hr_hw)
+
+    def make_prox(self, y: torch.Tensor, kernel: Optional[torch.Tensor],
+                  mask: torch.Tensor):
+        """The task's data prox ``prox(x0, tau)`` for the observations ``y``
+        (``prox_from_state(prox_state(y, kernel, mask))``)."""
+        return self.prox_from_state(self.prox_state(y, kernel, mask))
+
+    def initial_x(self, y: torch.Tensor, mask: Optional[torch.Tensor], n0: torch.Tensor,
+                  init: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x_{t_start} from the observations and the initial draw ``n0``
+        (``sampler.init_x``); ``init``, where given, replaces the task's x
+        init in [0,1] before it is diffused."""
+        sa0 = float(self.schedule.sqrt_alphas_cumprod[self.t_start])
+        s1m0 = float(np.sqrt(1 - self.schedule.alphas_cumprod[self.t_start]))
+        if init is not None:
+            return sa0 * (2.0 * init.float() - 1.0) + s1m0 * n0
+        return init_x(self.cfg.task, y, mask, self.cfg.sf, n0, sqrt_acp_start=sa0,
+                      sqrt_1m_acp_start=s1m0, ty=self.ty_scale)
 
     def restore(self, y: torch.Tensor, mask: torch.Tensor, lambda_, zeta,
                 seed: int, noise=None, kernel: Optional[torch.Tensor] = None,
@@ -341,15 +384,9 @@ class Runner:
             plan = self._plan(1.0)
         else:
             plan = self._plan(lambda_)
-        sa0 = float(self.schedule.sqrt_alphas_cumprod[self.t_start])
-        s1m0 = float(np.sqrt(1 - self.schedule.alphas_cumprod[self.t_start]))
         up = cfg.sf if cfg.task == "sr" else 1
         n0 = noise(-1, 0, "init", (b, h * up, w * up, c))
-        if init is not None:
-            x = sa0 * (2.0 * init.float() - 1.0) + s1m0 * n0
-        else:
-            x = init_x(cfg.task, y, mask, cfg.sf, n0, sqrt_acp_start=sa0,
-                       sqrt_1m_acp_start=s1m0, ty=self.ty_scale)
+        x = self.initial_x(y, mask, n0, init)
         inpaint = cfg.task == "inpaint"
         if cfg.model_output_type == "pred_x_prev":
             # inpaint: the masked average on the sampled x; deblur and sr: no
@@ -758,17 +795,14 @@ def dryrun_restore(n_devices: int, bundle: bool = False) -> None:
     dp x sp (n/2 x 2) and dp x tp x sp (n/4 x 2 x 2), against dp; then one
     ``RestorationService`` coalescing round.  Run inside a group of
     ``n_devices`` ranks, or with no group, when it starts one of gloo ranks
-    on the CPU (``parallel.multihost.spawn``).  The JAX dry run's mesh-bundle
-    stage needs the export module, which is not ported (``bundle=True``
-    raises)."""
-    if bundle:
-        raise NotImplementedError(
-            "the mesh-bundle stage waits for the port of export.py (ROADMAP.md "
-            "queue A item 9)")
+    on the CPU (``parallel.multihost.spawn``).  ``bundle=True`` adds the JAX
+    dry run's mesh-bundle stage (``diffpir_tpu/runner.py:812-828``): the dp
+    inpaint runner's bundle (``export.save_bundle``) loaded and run on the
+    mesh, against the live runner at ``DRYRUN_ATOL``."""
     if not dist.is_initialized():
         from diffpir_tpu_torch.parallel.multihost import spawn
 
-        spawn("diffpir_tpu_torch.runner:dryrun_restore", n_devices, [n_devices])
+        spawn("diffpir_tpu_torch.runner:dryrun_restore", n_devices, [n_devices, bundle])
         return
     from diffpir_tpu_torch.config import load_config
     from diffpir_tpu_torch.parallel.multihost import rank_device
@@ -807,15 +841,34 @@ def dryrun_restore(n_devices: int, bundle: bool = False) -> None:
             np.testing.assert_allclose(got, out, rtol=0, atol=DRYRUN_ATOL)
             say(f"dryrun_restore: {task} {' x '.join(axes)}{shape}: OK (parity vs dp)")
         if task == "inpaint":
-            inpaint = (cfg_for(task, (n_devices,)), batch)
+            inpaint = (cfg_for(task, (n_devices,)), runner, batch, out)
 
-    say("dryrun_restore: mesh bundle: not run (export.py is not ported, ROADMAP.md "
-        "queue A item 9)")
+    cfg, runner, batch, out = inpaint
+    if bundle:
+        import shutil
+        import tempfile
+
+        from diffpir_tpu_torch.export import load_bundle, save_bundle
+
+        # one directory for every rank: rank 0 makes it and tells the others
+        where = [tempfile.mkdtemp(prefix="diffpir-bundle-") if dist.get_rank() == 0
+                 else None]
+        dist.broadcast_object_list(where, src=0, group=runner.mesh.host_group)
+        try:
+            path = save_bundle(runner, os.path.join(where[0], "bundle"), batch=n_devices,
+                               height=H, width=H, platforms=(device.type,),
+                               allow_random_weights=True)
+            got = load_bundle(path, device=device)(batch.img_L, mask=batch.mask, seed=0)
+            dist.barrier(group=runner.mesh.host_group)
+        finally:
+            if dist.get_rank() == 0:
+                shutil.rmtree(where[0], ignore_errors=True)
+        np.testing.assert_allclose(got, out, rtol=0, atol=DRYRUN_ATOL)
+        say(f"dryrun_restore: mesh bundle({n_devices}): OK (parity vs runner)")
     from concurrent.futures import wait
 
     from diffpir_tpu_torch.serve import RestorationService
 
-    cfg, batch = inpaint
     svc = RestorationService(cfg, device=device, use_mesh=True, service_batch=n_devices,
                              max_wait_ms=200.0, allow_random_weights=True)
     try:
@@ -827,5 +880,5 @@ def dryrun_restore(n_devices: int, bundle: bool = False) -> None:
     assert all(np.isfinite(o).all() for o in outs)
     assert outs[0].shape == batch.img_L[0].shape
     say(f"dryrun_restore: serve coalescing({n_devices}): OK")
-    say(f"dryrun_restore({n_devices}): OK (3-task dp + dp x tp + sp + dp x tp x sp "
-        "+ serve; bundle not ported)")
+    say(f"dryrun_restore({n_devices}): OK (3-task dp + dp x tp + sp + dp x tp x sp"
+        + (" + bundle" if bundle else "") + " + serve)")

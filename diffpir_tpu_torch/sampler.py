@@ -39,7 +39,8 @@ from diffpir_tpu_torch.schedule import NoiseSchedule, TrajectoryPlan
 
 __all__ = ["Denoiser", "make_denoiser", "model_fn", "denoise_x0", "denoise_output",
            "make_inpaint_prox", "make_fft_prox", "make_cubic_sr_prox", "init_x",
-           "generator_noise", "per_sample", "diffpir_sample", "xprev_sample"]
+           "generator_noise", "per_sample", "StepTables", "step_tables", "diffpir_step",
+           "diffpir_sample", "xprev_sample"]
 
 NoiseFn = Callable[[int, int, str, tuple], torch.Tensor]
 
@@ -199,6 +200,95 @@ def per_sample(v, like: torch.Tensor):
     return torch.as_tensor(v, dtype=torch.float32, device=like.device).reshape(-1, 1, 1, 1)
 
 
+STEP_COLUMNS = ("sqrt_acp_t", "sqrt_1m_acp_t", "sqrt_acp_prev", "sqrt_1m_acp_prev",
+                "eta_sigma", "dir_coef", "rho", "sae", "setback_sd", "c1", "c2")
+STEP_FLAGS = ("prox", "renoise", "setback")
+
+
+@dataclasses.dataclass(frozen=True)
+class StepTables:
+    """One row per (step i, inner repeat u) of a DiffPIR trajectory, in the
+    order the loop runs them: the scalars ``diffpir_step`` reads
+    (``STEP_COLUMNS``: the plan's schedule values, the renoise's direction
+    coefficient, rho, the set-back's factor and noise scale, and the
+    denoiser's x0 coefficients at t_i), its ``torch.where`` selectors
+    (``STEP_FLAGS``) and t_i.  Every value is the float32 the loop used to
+    compute per step from the plan."""
+
+    coef: np.ndarray      # (R, len(STEP_COLUMNS)) float32
+    flags: np.ndarray     # (R, len(STEP_FLAGS)) bool
+    t: np.ndarray         # (R,) int32
+    step: np.ndarray      # (R,) int32, i of each row
+    repeat: np.ndarray    # (R,) int32, u of each row
+
+
+def step_tables(den: Denoiser, plan: TrajectoryPlan, iter_num_U: int = 1) -> StepTables:
+    """The rows of steps 0..n-2, ``iter_num_U`` rows each."""
+    f32 = np.float32
+    coef, flags, ts, steps, repeats = [], [], [], [], []
+    for i in range(plan.n_steps - 1):
+        sa_t, s1m_t = f32(plan.sqrt_acp_t[i]), f32(plan.sqrt_1m_acp_t[i])
+        sa_p, s1m_p = f32(plan.sqrt_acp_prev[i]), f32(plan.sqrt_1m_acp_prev[i])
+        eta_sigma = f32(plan.eta_sigma[i])
+        dir_coef = math.sqrt(max(s1m_p ** 2 - eta_sigma ** 2, 0.0))
+        sae = sa_t / sa_p
+        var = s1m_t ** 2 - sae ** 2 * s1m_p ** 2
+        t = int(plan.t[i])
+        renoise = bool(plan.renoise[i])
+        for u in range(iter_num_U):
+            last_u = u == iter_num_U - 1
+            coef.append((sa_t, s1m_t, sa_p, s1m_p, eta_sigma, dir_coef, plan.rho[i], sae,
+                         np.sqrt(max(var, 0.0)), den.sqrt_recip_acp[t],
+                         den.sqrt_recipm1_acp[t]))
+            flags.append((bool(plan.prox[i]), renoise or not last_u,
+                          renoise and not last_u))
+            ts.append(t)
+            steps.append(i)
+            repeats.append(u)
+    k = len(STEP_COLUMNS)
+    return StepTables(coef=np.asarray(coef, np.float32).reshape(-1, k),
+                      flags=np.asarray(flags, bool).reshape(-1, len(STEP_FLAGS)),
+                      t=np.asarray(ts, np.int32), step=np.asarray(steps, np.int32),
+                      repeat=np.asarray(repeats, np.int32))
+
+
+def diffpir_step(den: Denoiser, prox_fn: Optional[Callable], x: torch.Tensor,
+                 coef: torch.Tensor, flags: torch.Tensor, t: torch.Tensor,
+                 n1: torch.Tensor, n2: torch.Tensor, *, sqrt_zeta, sqrt_1m_zeta,
+                 lam_b: Optional[torch.Tensor] = None,
+                 rp: Optional[torch.Tensor] = None, n3: Optional[torch.Tensor] = None,
+                 y2: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One (step, inner repeat) of ``diffpir_sample``: repaint's injection
+    of the noised known pixels (where ``rp`` is given), the denoise to a
+    clamped x0, the prox (where ``prox_fn`` is given; rho scaled by
+    ``lam_b``), and the DDIM-like renoise, then the set-back to x_t before
+    the next inner repeat (where ``n3`` is given).  Every per-step value is a
+    tensor: ``coef`` and ``flags`` a row of ``StepTables`` (the flags select
+    with ``torch.where``), ``t`` the 0-d timestep; so one traced program
+    serves every step (``export.py``)."""
+    (sa_t, s1m_t, sa_p, s1m_p, eta_sigma, dir_coef, rho, sae, setback_sd, c1,
+     c2) = coef.unbind(0)
+    do_prox, do_renoise, do_setback = flags.unbind(0)
+    if rp is not None:
+        noised_known = sa_t * y2 + s1m_t * rp
+        x = noised_known * mask + (1.0 - mask) * x
+    out = den.model(x.to(den.compute_dtype), t.expand(x.shape[0]))
+    eps = out[..., : x.shape[-1]].float()
+    x0 = (c1 * x - c2 * eps).clamp(-1.0, 1.0)
+    if prox_fn is not None:
+        tau = rho if lam_b is None else rho * lam_b
+        x0 = torch.where(do_prox, prox_fn(x0, tau), x0)
+    eps_hat = (x - sa_t * x0) / s1m_t
+    renoised = (sa_p * x0 + sqrt_1m_zeta * (dir_coef * eps_hat + eta_sigma * n1)
+                + sqrt_zeta * s1m_p * n2)
+    x = torch.where(do_renoise, renoised, x)
+    if n3 is not None:
+        # set x_{t-1} back to x_t for the next inner repeat (main_ddpir.py:462-467)
+        x = torch.where(do_setback, sae * x + setback_sd * n3, x)
+    return x
+
+
 def diffpir_sample(den: Denoiser, prox_fn: Optional[Callable],
                    plan: TrajectoryPlan, x_init: torch.Tensor, *,
                    noise: NoiseFn, zeta=0.25, iter_num_U: int = 1,
@@ -211,62 +301,53 @@ def diffpir_sample(den: Denoiser, prox_fn: Optional[Callable],
     """Run the DiffPIR trajectory; returns the restored image in [0, 1].
 
     Steps 0..n-2 each do ``iter_num_U`` times (repaint injection) -> denoise
-    -> (prox, DiffPIR mode only) -> renoise; at the last inner repeat the
-    renoise is skipped on rows whose ``plan.renoise`` is False
-    (duplicate-of-last quad rows), and so is the set-back before the other
-    repeats.  ``zeta`` and ``lam_scale`` (which scales the plan's rho) are
-    floats or per-sample (B,) values.  ``recover_known`` overwrites the
-    observed pixels at the end (``main_ddpir.py:475-476``).  With
-    ``progress_slots`` (length n_steps, slot index or -1) it returns
-    ``(x01, frames)``: frames (n_slots, B, H, W, C) in [0, 1], the slot of
-    the skipped final step holding the final state.
+    -> (prox, DiffPIR mode only) -> renoise (``diffpir_step``, one row of
+    ``step_tables`` each); at the last inner repeat the renoise is skipped
+    on rows whose ``plan.renoise`` is False (duplicate-of-last quad rows),
+    and so is the set-back before the other repeats.  ``zeta`` and
+    ``lam_scale`` (which scales the plan's rho) are floats or per-sample (B,)
+    values.  ``recover_known`` overwrites the observed pixels at the end
+    (``main_ddpir.py:475-476``).  With ``progress_slots`` (length n_steps,
+    slot index or -1) it returns ``(x01, frames)``: frames (n_slots, B, H,
+    W, C) in [0, 1], the slot of the skipped final step holding the final
+    state.
     """
     use_prox = generate_mode == "DiffPIR" and prox_fn is not None
+    repaint = generate_mode == "repaint"
+    dev = x_init.device
+    tables = step_tables(den, plan, iter_num_U)
+    coef = torch.from_numpy(tables.coef).to(dev)
+    flags = torch.from_numpy(tables.flags).to(dev)
+    ts = torch.from_numpy(tables.t).to(dev)
     if np.ndim(zeta):
         zeta_b = per_sample(zeta, x_init)
         sqrt_zeta, sqrt_1m_zeta = torch.sqrt(zeta_b), torch.sqrt(1.0 - zeta_b)
     else:
-        zeta32 = np.float32(zeta)
-        sqrt_zeta = float(np.sqrt(zeta32))
-        sqrt_1m_zeta = float(np.sqrt(np.float32(1.0) - zeta32))
+        z = np.float32(zeta)
+        sqrt_zeta = torch.tensor(np.sqrt(z), device=dev)
+        sqrt_1m_zeta = torch.tensor(np.sqrt(np.float32(1.0) - z), device=dev)
     lam_b = per_sample(lam_scale, x_init)
     y2 = None if y is None else (2.0 * y - 1.0).float()
     frames = None
     if progress_slots is not None:
         frames = torch.zeros((int(progress_slots.max()) + 1,) + tuple(x_init.shape),
-                             dtype=torch.float32, device=x_init.device)
+                             dtype=torch.float32, device=dev)
     x = x_init.float()
     shape = tuple(x.shape)
-    f32 = np.float32
-    for i in range(plan.n_steps - 1):
-        sa_t, s1m_t = float(plan.sqrt_acp_t[i]), float(plan.sqrt_1m_acp_t[i])
-        sa_p, s1m_p = float(plan.sqrt_acp_prev[i]), float(plan.sqrt_1m_acp_prev[i])
-        eta_sigma = float(plan.eta_sigma[i])
-        dir_coef = math.sqrt(max(f32(s1m_p) ** 2 - f32(eta_sigma) ** 2, 0.0))
-        renoise = bool(plan.renoise[i])
-        for u in range(iter_num_U):
-            if generate_mode == "repaint":
-                noised_known = sa_t * y2 + s1m_t * noise(i, u, "rp", shape)
-                x = noised_known * mask + (1.0 - mask) * x
-            x0 = denoise_x0(den, x, int(plan.t[i]))
-            if use_prox and plan.prox[i]:
-                tau = float(plan.rho[i]) if lam_b is None else float(plan.rho[i]) * lam_b
-                x0 = prox_fn(x0, tau)
-            eps_hat = (x - sa_t * x0) / s1m_t
-            n1 = noise(i, u, "n1", shape)
-            n2 = noise(i, u, "n2", shape)
-            last_u = u == iter_num_U - 1
-            if renoise or not last_u:
-                x = (sa_p * x0 + sqrt_1m_zeta * (dir_coef * eps_hat + eta_sigma * n1)
-                     + sqrt_zeta * s1m_p * n2)
-            if not last_u and renoise:
-                # set x_{t-1} back to x_t for the next inner repeat
-                # (main_ddpir.py:462-467)
-                sae = f32(sa_t) / f32(sa_p)
-                var = f32(s1m_t) ** 2 - sae ** 2 * f32(s1m_p) ** 2
-                x = float(sae) * x + float(np.sqrt(max(var, 0.0))) * noise(
-                    i, u, "n3", shape)
-        if frames is not None and progress_slots[i] >= 0:
+    no_setback = torch.zeros(shape, dtype=torch.float32, device=dev) if iter_num_U > 1 else None
+    for k in range(len(tables.t)):
+        i, u = int(tables.step[k]), int(tables.repeat[k])
+        rp = noise(i, u, "rp", shape) if repaint else None
+        n1 = noise(i, u, "n1", shape)
+        n2 = noise(i, u, "n2", shape)
+        n3 = no_setback
+        if tables.flags[k, 2]:
+            n3 = noise(i, u, "n3", shape)
+        with torch.no_grad():
+            x = diffpir_step(den, prox_fn if use_prox else None, x, coef[k], flags[k], ts[k],
+                             n1, n2, sqrt_zeta=sqrt_zeta, sqrt_1m_zeta=sqrt_1m_zeta,
+                             lam_b=lam_b, rp=rp, n3=n3, y2=y2, mask=mask)
+        if frames is not None and u == iter_num_U - 1 and progress_slots[i] >= 0:
             frames[int(progress_slots[i])] = x * 0.5 + 0.5
     if recover_known and mask is not None:
         x = mask * y2 + (1.0 - mask) * x

@@ -27,9 +27,16 @@ config and its model once and serves requests of any size:
 
 The runner's ``restore_batch(..., fetch=False)`` returns the card's tensors
 without waiting, so a chunk's fetch overlaps the next chunk's trajectory.
-``serve_folder`` restores a directory of images the same way.  Booting from
-an exported bundle (``bundle_path``) waits for the port of ``export.py``
-(ROADMAP.md queue A).
+``serve_folder`` restores a directory of images the same way.
+
+``RestorationService(bundle_path=...)`` boots from an exported bundle
+(``export.save_bundle``; ``diffpir_tpu/serve.py:63-102``) instead of a
+Runner: the config comes from the manifest, no model is built, and with the
+bundle's sidecar (``LoadedRestore.save_aot``) the boot runs no ``nvcc``.
+The program's shapes are fixed: each request is padded to the manifest's
+H x W and cropped back, a PSF larger than its ``kernel_hw`` is a request
+error, ``service_batch`` is ignored, and a fixed-point bundle refuses
+call-time (lambda, zeta).  Weight provenance was checked at export.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from diffpir_tpu_torch.config import TaskConfig
+from diffpir_tpu_torch.config import TaskConfig, load_config
 from diffpir_tpu_torch.data import Batch, make_batches, prepare_images
 from diffpir_tpu_torch.runner import Runner, overlap_dispatch
 from diffpir_tpu_torch.utils import image as im
@@ -66,7 +73,9 @@ def _random_weights_error(cfg: TaskConfig) -> RuntimeError:
 
 
 class RestorationService:
-    """Long-lived restoration endpoint over a fixed task configuration.
+    """Long-lived restoration endpoint over a fixed task configuration, or
+    over an exported bundle (``bundle_path``; ``cfg`` then defaults to the
+    manifest's and no Runner is built).
 
     ``device`` defaults to the card (raising when there is none);
     ``device="cpu"`` runs on the CPU."""
@@ -79,24 +88,43 @@ class RestorationService:
                  max_wait_ms: float = 20.0,
                  kernel_size: Optional[int] = None,
                  allow_random_weights: bool = False):
+        self.loaded = None
+        self._bundle_hw = None
         if bundle_path is not None:
-            raise NotImplementedError(
-                "serving from an exported bundle is not ported yet (ROADMAP.md "
-                "queue A: export.py and the bundle boot of RestorationService)")
-        if cfg is None:
-            raise ValueError("pass a TaskConfig")
-        self.cfg = cfg
-        self.runner = Runner(cfg, device=device, use_mesh=use_mesh)
-        if self.runner.weights_provenance == "random" and not allow_random_weights:
-            raise _random_weights_error(cfg)
-        self.batch = service_batch or cfg.batch_size
-        mesh = self.runner.mesh
+            from diffpir_tpu_torch.export import load_bundle
+
+            self.loaded = load_bundle(bundle_path, device=device)
+            m = self.loaded.manifest
+            if cfg is None:
+                cfg = load_config(None, overrides=dict(
+                    task=m["task"], n_channels=m["n_channels"], model_name=m["model_name"],
+                    iter_num=m["iter_num"], batch_size=m["batch"], lambda_=m["lambda_"],
+                    zeta=m["zeta"], **(dict(sf=m["sf"]) if m["task"] == "sr" else {})))
+            self.cfg = cfg
+            self.runner = None
+            self.device = self.loaded.device
+            self.batch = m["batch"]
+            self._bundle_hw = (m["height"], m["width"])
+            self._pad_mod = 1  # requests are padded to the manifest's size instead
+            if kernel_size is None:
+                kernel_size = tuple(m["kernel_hw"])
+            mesh = self.loaded.mesh
+        else:
+            if cfg is None:
+                raise ValueError("pass a TaskConfig or bundle_path")
+            self.cfg = cfg
+            self.runner = Runner(cfg, device=device, use_mesh=use_mesh)
+            if self.runner.weights_provenance == "random" and not allow_random_weights:
+                raise _random_weights_error(cfg)
+            self.device = self.runner.device
+            self.batch = service_batch or cfg.batch_size
+            mesh = self.runner.mesh
+            # deepest downsample factor of the bound model's topology
+            self._pad_mod = 2 ** (len(self.runner.model.cfg.channel_mult) - 1)
         # the group over which rank 0 announces each coalescing round
         self._rounds = None if mesh is None else mesh.host_group
         self._leader = not dist.is_initialized() or dist.get_rank() == 0
-        # deepest downsample factor of the bound model's topology
-        self._pad_mod = 2 ** (len(self.runner.model.cfg.channel_mult) - 1)
-        # None: round each PSF up to a multiple of 8; an int: that size
+        # None: round each PSF up to a multiple of 8; an int or a pair: that size
         self._kernel_size = kernel_size
         self._lock = threading.Lock()        # the device section
         self._max_wait = max_wait_ms / 1000.0
@@ -146,9 +174,15 @@ class RestorationService:
                 if not np.isin(vals, (0.0, 1.0)).all():
                     raise RequestError(f"mask[{i}]: must be binary 0/1 (found {vals[:5]})")
 
-    @staticmethod
-    def _validate_point(lambda_, zeta) -> None:
+    def _validate_point(self, lambda_, zeta) -> None:
         """lambda_/zeta: None, a scalar, or a per-image sequence."""
+        m = None if self.loaded is None else self.loaded.manifest
+        if m is not None and not m.get("dynamic_point") and (lambda_ is not None
+                                                              or zeta is not None):
+            raise RequestError(
+                f"this bundle bakes its operating point (lambda={m.get('lambda_')}, "
+                f"zeta={m.get('zeta')}); re-export with dynamic_point=True to choose "
+                "(lambda, zeta) per request")
         if lambda_ is not None:
             lam = np.atleast_1d(np.asarray(lambda_, np.float64))
             if not (np.isfinite(lam).all() and (lam > 0).all()):
@@ -185,9 +219,17 @@ class RestorationService:
         chunks = []
         for shape, idx_group in by_shape.items():
             h, w = shape[:2]
-            # the UNet's skip concatenations need H and W divisible by its
-            # deepest downsample factor; outputs are cropped back
-            ph, pw = (-h) % self._pad_mod, (-w) % self._pad_mod
+            if self._bundle_hw is not None:
+                # a bundle's program takes exactly the manifest's size
+                H, W = self._bundle_hw
+                if h > H or w > W:
+                    raise RequestError(f"image ({h},{w}) exceeds the bundle's compiled "
+                                       f"input size ({H},{W})")
+                ph, pw = H - h, W - w
+            else:
+                # the UNet's skip concatenations need H and W divisible by its
+                # deepest downsample factor; outputs are cropped back
+                ph, pw = (-h) % self._pad_mod, (-w) % self._pad_mod
             # reflect keeps the content's statistics; it needs pad < size
             pad_mode = "reflect" if (ph < h and pw < w) else "edge"
             for i in range(0, len(idx_group), self.batch):
@@ -236,16 +278,27 @@ class RestorationService:
             for j, o in zip(chunk, out):
                 outs[j] = o
 
-        dev = self.runner.device
+        dev = self.device
         on_card = (torch.cuda.device(dev) if dev.type == "cuda"
                    else contextlib.nullcontext())
         pending = None
         for chunk_no, (chunk, hw, ph, pw, pad_mode) in enumerate(chunks):
             batch = prep(chunk, ph, pw, pad_mode)
             with self._lock, on_card:
-                restored = self.runner.restore_batch(
-                    batch, per_chunk(lambda_, chunk), per_chunk(zeta, chunk),
-                    seed=seed + chunk_no, fetch=False)
+                if self.loaded is not None:
+                    try:
+                        restored = self.loaded(
+                            batch.img_L, kernel=batch.kernel if kernels is not None else None,
+                            mask=batch.mask if masks is not None else None,
+                            seed=seed + chunk_no, lambda_=per_chunk(lambda_, chunk),
+                            zeta=per_chunk(zeta, chunk), fetch=False)
+                    except ValueError as e:
+                        # a request the program cannot take, not a server fault
+                        raise RequestError(str(e)) from e
+                else:
+                    restored = self.runner.restore_batch(
+                        batch, per_chunk(lambda_, chunk), per_chunk(zeta, chunk),
+                        seed=seed + chunk_no, fetch=False)
             if pending is not None:
                 consume(*pending)
             pending = (chunk, hw, bool(ph or pw), batch.img_L.shape[1], restored)
@@ -268,6 +321,9 @@ class RestorationService:
         for ax in range(2):
             size = k.shape[ax]
             t = tgt[ax] if tgt is not None else -(-size // 8) * 8  # multiple of 8
+            if self._bundle_hw is not None and size > t:
+                raise RequestError(f"kernel dim {size} exceeds the bundle's compiled PSF "
+                                   f"size {tuple(tgt)}")
             t = min(max(t, size), hw[ax])  # never larger than the image
             p0 = t // 2 - size // 2
             pads.append((p0, t - size - p0))

@@ -27,8 +27,10 @@ unknown route 404, a body over ``max_body_bytes`` 413 before it is read.
     python -m diffpir_tpu_torch.server_http --opt configs/<task>.yaml \
         [--port 8000] [--host 127.0.0.1] [--warmup H W] [--set key=value ...] \
         [--cpu] [--allow-random-weights]
+    python -m diffpir_tpu_torch.server_http --bundle DIR [--port ...] [--cpu]
 
-runs on the CUDA card unless ``--cpu`` is given.  ``start_server(service,
+runs on the CUDA card unless ``--cpu`` is given; ``--bundle`` serves an
+exported bundle (``export.save_bundle``) instead of building a Runner.  ``start_server(service,
 port)`` embeds it and returns the live server (``.shutdown()`` stops it).
 PNGs are decoded and encoded by ``utils/png.py``.
 """
@@ -240,7 +242,10 @@ def main(argv: Optional[list[str]] = None) -> None:
     from diffpir_tpu_torch.config import load_config, parse_overrides
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--opt", required=True, help="task YAML config")
+    ap.add_argument("--opt", default=None, help="task YAML config")
+    ap.add_argument("--bundle", default=None, metavar="DIR",
+                    help="serve an exported bundle (diffpir_tpu_torch.export) instead of "
+                         "building a Runner; with its sidecar the boot runs no nvcc")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--warmup", type=int, nargs=2, metavar=("H", "W"), default=None,
@@ -252,11 +257,19 @@ def main(argv: Optional[list[str]] = None) -> None:
                     help="serve without trained weights (test fixtures only)")
     args = ap.parse_args(argv)
     device = resolve_device(args.cpu)
-    cfg = load_config(args.opt, parse_overrides(args.set))
-    service = RestorationService(cfg, device=device,
-                                 allow_random_weights=args.allow_random_weights)
-    print(f"serving {cfg.task}/{cfg.model_name} on {args.host}:{args.port} "
-          f"({device})", flush=True)
+    if args.bundle is not None:
+        if args.opt is not None or args.set:
+            raise SystemExit("--bundle is self-describing; drop --opt/--set")
+        service = RestorationService(bundle_path=args.bundle, device=device)
+    else:
+        if args.opt is None:
+            raise SystemExit("pass --opt <config.yaml> or --bundle <dir>")
+        cfg = load_config(args.opt, parse_overrides(args.set))
+        service = RestorationService(cfg, device=device,
+                                     allow_random_weights=args.allow_random_weights)
+    cfg = service.cfg
+    print(f"serving {cfg.task}/{cfg.model_name} on {args.host}:{args.port} ({device})"
+          + (f" from bundle {args.bundle}" if args.bundle else ""), flush=True)
     start_server(service, args.port, host=args.host,
                  warmup_hw=tuple(args.warmup) if args.warmup else None, block=True)
 

@@ -37,7 +37,7 @@ def test_import_pulls_in_no_forbidden_module():
             "diffpir_tpu_torch.ops.boundary, diffpir_tpu_torch.utils.raster, "
             "diffpir_tpu_torch.parallel, diffpir_tpu_torch.parallel.mesh, "
             "diffpir_tpu_torch.parallel.collectives, diffpir_tpu_torch.parallel.tp, "
-            "diffpir_tpu_torch.parallel.multihost\n"
+            "diffpir_tpu_torch.parallel.multihost, diffpir_tpu_torch.export\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -49,6 +49,7 @@ def test_import_pulls_in_no_forbidden_module():
 def test_sources_use_no_forbidden_import_or_extension_builder():
     paths = glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
     assert os.path.join(PKG, "parallel", "multihost.py") in paths
+    assert os.path.join(PKG, "export.py") in paths
     for path in paths + [os.path.join(ROOT, "chip_smoke.py"),
                          os.path.join(ROOT, "tests", "test_torch_parallel_ranks.py")]:
         with open(path) as f:

@@ -107,4 +107,7 @@ def test_train_step_slices_match_one_rank_update(group):
 
 
 def test_dryrun_restore_ran(group):
+    """``dryrun_restore(4, bundle=True)``: the JAX package's dry run, its
+    mesh-bundle stage (a dp bundle saved, loaded and run on the group
+    against the live runner at ``DRYRUN_ATOL``) included."""
     assert all(r["dryrun_restore"] == "ok" for r in group[0])

@@ -83,10 +83,11 @@ def suite4(workdir: str) -> dict:
 
     res["train_loss"] = dryrun_train_step(4)
     res["slices"] = train_slices()
-    # the JAX package's dry run (restores, then the service's coalescing round)
+    # the JAX package's dry run (restores, the mesh-bundle stage, then the
+    # service's coalescing round)
     from diffpir_tpu_torch.runner import dryrun_restore
 
-    dryrun_restore(4)
+    dryrun_restore(4, bundle=True)
     res["dryrun_restore"] = "ok"
     return res
 
@@ -167,4 +168,36 @@ def suite8(workdir: str) -> dict:
                          noise=noise, kernel=t(d["kernel"]))
     if _is_root():
         np.save(os.path.join(workdir, "port_deblur.npy"), got.numpy())
+    return res
+
+
+def export_suite4(workdir: str) -> dict:
+    """The 4-rank group of ``test_torch_export_mesh.py``: mesh bundles of the
+    tiny inpaint restore under (4,) data, (2, 2) data x model and a
+    dynamic-point (4,) data mesh, each loaded and run on the group against
+    the unsharded runner (rank 0 runs that).  The bundles stay under
+    ``workdir``.  (The dry run's mesh-bundle stage runs in ``suite4``.)"""
+    from diffpir_tpu_torch.export import load_bundle, save_bundle
+
+    res: dict = {}
+    batch = _dryrun_batch(np.random.default_rng(2), 4, 32, "inpaint")
+    refs = {}
+    if _is_root():
+        ref_runner = Runner(_cfg("inpaint", "tiny_test"), device="cpu", use_mesh=False)
+        refs[False] = ref_runner.restore_batch(batch, seed=5)
+        refs[True] = ref_runner.restore_batch(batch, lambda_=9.0, seed=5)
+    for name, shape, axes, dynamic in (("data", (4,), ("data",), False),
+                                       ("dataxmodel", (2, 2), ("data", "model"), False),
+                                       ("data_dynamic", (4,), ("data",), True)):
+        runner = Runner(_cfg("inpaint", "tiny_test", list(shape), list(axes)), device="cpu")
+        path = save_bundle(runner, os.path.join(workdir, name), batch=4, height=32,
+                           width=32, dynamic_point=dynamic, platforms=("cpu",),
+                           allow_random_weights=True)
+        loaded = load_bundle(path, device="cpu")
+        got = loaded(batch.img_L, mask=batch.mask, seed=5,
+                     **({"lambda_": 9.0} if dynamic else {}))
+        if _is_root():
+            res[name] = float(np.abs(got - refs[dynamic]).max())
+            res[f"{name} mesh"] = loaded.manifest["mesh"]
+            res[f"{name} shape"] = list(got.shape)
     return res

@@ -232,16 +232,32 @@ def test_submit_coalesces_concurrent_requests(tiny_env):
     assert len(calls) <= 3
 
 
-def test_service_refuses_random_weights_and_bundles(tiny_env):
+def test_service_refuses_random_weights(tiny_env, monkeypatch):
     with pytest.raises(RuntimeError, match="random"):
         RestorationService(_cfg(tiny_env), device="cpu", service_batch=2)
     with pytest.raises(RuntimeError, match="random"):
         serve_folder(_cfg(tiny_env), str(tiny_env / "testsets" / "tiny"),
                      str(tiny_env / "out"), device="cpu")
-    # booting from an exported bundle is not ported: it raises, and builds
-    # no runner in its place
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A: export.py"):
-        RestorationService(_cfg(tiny_env), bundle_path=str(tiny_env), device="cpu")
+    # a bundle's weights were vetted at export, which refuses random ones
+    # unless asked; the service boots from one without building a runner
+    from diffpir_tpu_torch import serve as serve_mod
+    from diffpir_tpu_torch.export import save_bundle
+    from diffpir_tpu_torch.runner import Runner
+
+    runner = Runner(_cfg(tiny_env, iter_num=2), device="cpu")
+    with pytest.raises(RuntimeError, match="random"):
+        save_bundle(runner, str(tiny_env / "bundle"), batch=2, height=IMG, width=IMG,
+                    platforms=("cpu",))
+    path = save_bundle(runner, str(tiny_env / "bundle"), batch=2, height=IMG, width=IMG,
+                       platforms=("cpu",), allow_random_weights=True)
+
+    def no_runner(*a, **k):
+        raise AssertionError("a Runner was built in bundle mode")
+
+    monkeypatch.setattr(serve_mod, "Runner", no_runner)
+    svc = RestorationService(bundle_path=path, device="cpu")
+    assert svc.runner is None and svc.loaded is not None
+    assert svc.batch == 2 and svc.cfg.task == "inpaint" and svc.cfg.iter_num == 2
 
 
 def test_per_request_operating_point(tiny_env):
