@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [--package-root DIR]
+    python3 chip_smoke.py --only export,parallel
 
 Phases, each announced by a flushed ``phase <name> start`` line and closed by
 ``phase <name> done <seconds>s``:
@@ -56,7 +57,9 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              through the UNet (DPS_y0) and nowhere else, and come within
              PLAIN_PSNR_TOL_DB of a rerun with the plain versions; one more
              run times ms per NFE with the prox's share (CUDA events around
-             each prox call) and checks log_process's frames
+             each prox call) and checks log_process's frames.  The first
+             seed runs through the CLI, the others through one Runner (the
+             CLI's Runner.evaluate without reloading the weights)
   grad       one DPS_y0 step, d||y - H(x0(x))||/dx, on demo64 (fp32) and
              demo256 (bf16, batch 4) through the kernels' autograd.Functions
              against the same gradient through the plain versions (relative
@@ -97,20 +100,33 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              of a forward and no plain-version node, launch the live run's
              kernels, and come within EXPORT_PSNR_TOL_DB of its PSNR (bit for
              bit is expected; the largest difference is printed), ms per NFE
-             of bundle and live in turns; then, started together once the
-             sidecar is written (LoadedRestore.save_aot), two fresh ``python -c``
-             processes that load it, run it and print boot_timings with no
-             model, sampler or runner module imported, one without the sidecar
-             and one with it in which any kernel build raises, and ``python -m
-             diffpir_tpu_torch.server_http --bundle``, whose one POST /restore
-             must equal the bundle service's restore; demo64 deblur (fp32, the Levin k0 PSF, the FFT
-             prox's spectra from the prologue) within EXPORT_DEBLUR_ATOL; and
-             the diffusion_ffhq_10m topology at full width (seeded random
-             weights, bf16, b4, 256 px, 4 NFE) as demo256, with the export's
-             seconds and the program's size.  Where the demo256 bundle runs
-             more than 1.25x the live runner's ms per NFE, one bundle call's
-             cProfile, the other threads, the caching allocator's traffic and
-             torch.profiler tables of a bundle and a live call are logged
+             of bundle and live in turns with the main thread's CPU and
+             system time; then, started
+             together once the sidecar is written (LoadedRestore.save_aot), two
+             fresh ``python -c`` processes that load it, run it and print
+             boot_timings with no model, sampler or runner module imported, one
+             without the sidecar and one with it in which any kernel build
+             raises, and ``python -m diffpir_tpu_torch.server_http --bundle``,
+             whose one POST /restore must equal the bundle service's restore;
+             demo64 deblur (fp32, the Levin k0 PSF, the FFT prox's spectra
+             from the prologue) and EXPORT_MODE_BUNDLES (demo64 fp32:
+             pred_x_prev ancestral and DDIM inpaint, DPS_yt deblur at a noisy
+             observation, test_mode 3 inpaint: the x8 ensemble's one call of
+             32 images a step) within EXPORT_DEBLUR_ATOL; and the
+             diffusion_ffhq_10m topology at full width (seeded random weights,
+             bf16, b4, 256 px, 4 NFE) as demo256 inpaint and as a DPS_y0 deblur
+             bundle (its step program one backward node per kernel node), with
+             the export's seconds, the program's size, and for DPS_y0 ms per
+             NFE of bundle and live in turns and the peak memory.  Where the
+             demo256 bundle runs more than 1.25x the live runner's ms per NFE
+             (ROADMAP C6), the C6 probes (c6_probes: threads against a fresh
+             process's, CPU and system time, faults, context switches and
+             garbage collections per call, the bundle with the collector off,
+             at a short switch interval and reloaded, the frames of every
+             thread, GroupNorm's operator implementation against its
+             wrapper), one bundle call's cProfile, the caching allocator's
+             traffic and torch.profiler tables of a bundle and a live call
+             are logged
   train      the training path (diffpir_tpu_torch.train): the DEMO256 recipe
              (scripts/train_demo.py --arch hq256 --batch 16 --lr 1e-4,
              resumed from the 54M prior, bf16 compute with fp32 masters,
@@ -162,7 +178,13 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              (fp32, 2 NFE); a bundle of demo64's restore (fp32, 2 NFE) under
              data x model = 1 x 2, exported and run on the tp/sp pair's ranks, within
              DRYRUN_ATOL of the unsharded restore with the kernels' launches;
-             dryrun_train_step(4); and a group of one rank
+             on the same ranks DPS_y0 deblur of demo64 (fp32, b2, 2 NFE: its
+             gradient through the sharded UNet's collectives) under model = 2
+             and under space = 2, and a bundle of the DEMO256 prior's inpaint
+             restore under space = 2 in fp32 (b4, 4 NFE; the sharded
+             GroupNorm's halves and merge as operators at every GroupNorm,
+             the collectives counted), each within DRYRUN_ATOL of the
+             unsharded run; dryrun_train_step(4); and a group of one rank
              over NCCL made by multihost.initialize, whose restore must equal
              this process's bit for bit.  Per run: backend, world size,
              mesh, errors, ms per NFE and peak memory per rank (in the
@@ -174,7 +196,8 @@ power limit, and ``{"ok": true, "device": {...}}``.  Nothing is written
 outside ``.kernel_build/`` and temporary directories that are removed.
 
 ``--kernels-only`` stops after phase ``kernels`` and prints the per-forward
-sums as JSON (no result line); ``--package-root DIR`` takes the port's
+sums as JSON (no result line); ``--only export,parallel`` runs those phases
+after ``build`` alone (no result line); ``--package-root DIR`` takes the port's
 package, and its kernels, from the checkout at DIR (for example an unpacked
 parent commit), so that two versions can be timed on one card in turns.
 """
@@ -379,6 +402,17 @@ PAIRS_CASE = (33000, 4, 2, 32)
 EXPORT_PSNR_TOL_DB = 0.01
 EXPORT_DEBLUR_ATOL = 1e-5
 EXPORT_FFHQ_ITER = 5               # 4 NFE
+# phase export's demo64 bundles of the other modes (fp32, held as the
+# deblur bundle: EXPORT_DEBLUR_ATOL; the inpaint ones at 20 NFE, as the
+# deblur config runs): (name, config, overrides)
+EXPORT_MODE_BUNDLES = (
+    ("demo64_xprev", "configs/demo64_inpaint.yaml",
+     {"model_output_type": "pred_x_prev", "iter_num": 20}),
+    ("demo64_xprev_ddim", "configs/demo64_inpaint.yaml",
+     {"model_output_type": "pred_x_prev", "ddim_sample": True, "iter_num": 20}),
+    ("demo64_dps_yt", "configs/demo64_deblur.yaml", {"generate_mode": "DPS_yt", **NOISY}),
+    ("demo64_test_mode3", "configs/demo64_inpaint.yaml", {"test_mode": 3, "iter_num": 20}),
+)
 # the modules a bundle's serving process must not import
 MODEL_MODULES = ("diffpir_tpu_torch.models", "diffpir_tpu_torch.sampler",
                  "diffpir_tpu_torch.runner")
@@ -1848,6 +1882,189 @@ def finish_fresh_boot(started) -> dict:
     return res
 
 
+FRESH_PROBE = """
+import json, os, threading, torch
+torch.zeros(1, device="cuda")
+print(json.dumps(dict(os_threads=len(os.listdir("/proc/self/task")),
+                      python_threads=len(threading.enumerate()),
+                      torch_threads=torch.get_num_threads(),
+                      interop_threads=torch.get_num_interop_threads(),
+                      affinity=len(os.sched_getaffinity(0)))))
+"""
+
+
+def c6_probes(loaded, runner, batch, seed: int, nfe: int) -> dict:
+    """Where a loaded bundle's host time goes inside this process (ROADMAP
+    C6): the threads (Python, OS, torch's pools) against a fresh process's;
+    per call of the bundle and of the live runner (timed between CUDA
+    events as the turns are, then without), ms per NFE of wall time, of the
+    main thread's CPU time (user, system) and of the process's, the main
+    thread's page faults and context switches, and the garbage collector's
+    collections and seconds; the bundle with the collector off
+    and at a switch interval of 1e-4 s; the other threads' frames sampled
+    every 10 ms during a bundle call; and GroupNorm's operator
+    implementation against its wrapper, 200 calls each, in turns."""
+    import gc
+    import resource
+    import threading
+
+    import torch
+
+    from diffpir_tpu_torch.kernels._common import OP_IMPLS
+    from diffpir_tpu_torch.kernels.groupnorm import groupnorm_silu
+
+    calls = {"bundle": lambda: loaded(batch.img_L, mask=batch.mask, seed=seed),
+             "live": lambda: runner.restore_batch(batch, seed=seed)}
+    clock = [0.0, 0, 0.0]
+
+    def on_gc(what, info):
+        if what == "start":
+            clock[2] = time.perf_counter()
+        else:
+            clock[0] += time.perf_counter() - clock[2]
+            clock[1] += 1
+
+    def measure(fn) -> dict:
+        torch.cuda.synchronize()
+        clock[:2] = [0.0, 0]
+        ru0 = resource.getrusage(resource.RUSAGE_THREAD)
+        t0, c0, p0 = time.perf_counter(), time.thread_time(), time.process_time()
+        fn()
+        torch.cuda.synchronize()
+        t1, c1, p1 = time.perf_counter(), time.thread_time(), time.process_time()
+        ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+        return dict(ms_per_nfe=(t1 - t0) * 1e3 / nfe,
+                    thread_cpu_ms_per_nfe=(c1 - c0) * 1e3 / nfe,
+                    process_cpu_ms_per_nfe=(p1 - p0) * 1e3 / nfe,
+                    user_ms_per_nfe=(ru1.ru_utime - ru0.ru_utime) * 1e3 / nfe,
+                    system_ms_per_nfe=(ru1.ru_stime - ru0.ru_stime) * 1e3 / nfe,
+                    minor_faults=ru1.ru_minflt - ru0.ru_minflt,
+                    voluntary_switches=ru1.ru_nvcsw - ru0.ru_nvcsw,
+                    involuntary_switches=ru1.ru_nivcsw - ru0.ru_nivcsw,
+                    gc_collections=clock[1], gc_s=clock[0])
+
+    res = {"threads": dict(
+        python=[t.name for t in threading.enumerate()], frames=len(sys._current_frames()),
+        os_threads=len(os.listdir("/proc/self/task")),
+        torch_threads=torch.get_num_threads(),
+        interop_threads=torch.get_num_interop_threads(),
+        affinity=len(os.sched_getaffinity(0)))}
+    res["gc"] = dict(objects=len(gc.get_objects()), counts=gc.get_count(),
+                     thresholds=gc.get_threshold(), frozen=gc.get_freeze_count())
+    def with_events(fn) -> dict:
+        # as the export phase's turns time a call: CUDA events around it
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return dict(ms_per_nfe=(time.perf_counter() - t0) * 1e3 / nfe,
+                    thread_cpu_ms_per_nfe=(time.thread_time() - c0) * 1e3 / nfe,
+                    device_ms_per_nfe=start.elapsed_time(end) / nfe)
+
+    gc.callbacks.append(on_gc)
+    try:
+        # timed as the turns are, then as the probes are, in turns
+        for kind in ("bundle", "live"):
+            res.setdefault("events", []).append(dict(kind=kind, **with_events(calls[kind])))
+        for kind in ("bundle", "live"):
+            res.setdefault("sequence", []).append(dict(kind=kind, **measure(calls[kind])))
+        fresh = subprocess.run([sys.executable, "-c", FRESH_PROBE], capture_output=True,
+                               text=True, timeout=300)
+        res["fresh_process_threads"] = (json.loads(fresh.stdout.strip().splitlines()[-1])
+                                        if fresh.returncode == 0 else fresh.stderr[-500:])
+        for kind in ("bundle", "live"):
+            res.setdefault(kind, []).append(measure(calls[kind]))
+        gc.disable()
+        try:
+            res["bundle_gc_off"] = measure(calls["bundle"])
+        finally:
+            gc.enable()
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-4)
+        try:
+            res["bundle_switch_1e-4"] = measure(calls["bundle"])
+        finally:
+            sys.setswitchinterval(interval)
+    finally:
+        gc.callbacks.remove(on_gc)
+    # the other threads' frames, every 10 ms of one bundle call
+    samples: collections.Counter = collections.Counter()
+    stop = threading.Event()
+    main = threading.get_ident()
+
+    main_samples: collections.Counter = collections.Counter()
+
+    def sample():
+        me = threading.get_ident()
+        while not stop.wait(0.01):
+            for tid, fr in sys._current_frames().items():
+                where = (f"{os.path.basename(fr.f_code.co_filename)}:{fr.f_lineno} "
+                         f"{fr.f_code.co_name}")
+                if tid == main:
+                    main_samples[where] += 1
+                elif tid != me:
+                    samples[f"{tid} {where}"] += 1
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        res["bundle_sampled"] = measure(calls["bundle"])
+    finally:
+        stop.set()
+        sampler.join()
+    res["other_thread_samples"] = dict(samples.most_common(8))
+    res["main_thread_samples"] = dict(main_samples.most_common(12))
+    # a second LoadedRestore of the same bundle, loaded now
+    again = type(loaded)(loaded._path, device=loaded.device)
+    again(batch.img_L, mask=batch.mask, seed=seed)
+    res["reloaded"] = measure(lambda: again(batch.img_L, mask=batch.mask, seed=seed))
+    del again
+    # the host time of each step of one bundle call (no synchronisation in
+    # between), the slowest and fastest steps' share
+    step = loaded._programs["step"]
+    host_ms: list = []
+
+    class Timed:
+        def __call__(self, *flat):
+            t0 = time.perf_counter()
+            out = step(*flat)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    loaded._programs["step"] = Timed()
+    try:
+        res["bundle_steps_timed"] = measure(calls["bundle"])
+    finally:
+        loaded._programs["step"] = step
+    host_ms.sort()
+    res["step_host_ms"] = dict(min=host_ms[0], median=host_ms[len(host_ms) // 2],
+                               max=host_ms[-1], n=len(host_ms))
+    # the GroupNorm kernel's operator implementation (what a bundle's node
+    # calls) against the eager wrapper, on the same tensors, in turns
+    dev = torch.device("cuda")
+    gx = torch.zeros((4, 64, 64, 128), device=dev, dtype=torch.bfloat16)
+    gs, gb = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    impl = OP_IMPLS[("groupnorm_silu", "CUDA")]
+    fns = {"op_impl": lambda: impl(gx, gs, gb, None, None, 32, 1e-5, True),
+           "wrapper": lambda: groupnorm_silu(gx, gs, gb)}
+    host_us: dict = {}
+    for kind in ("op_impl", "wrapper", "wrapper", "op_impl"):
+        for _ in range(5):
+            fns[kind]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fns[kind]()
+        host_us.setdefault(kind, []).append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    res["groupnorm_host_us_per_call"] = host_us
+    return res
+
+
 def export_phase(dev, root: str) -> dict:
     """Phase export (see the module docstring).  Returns what the record
     line and the log report."""
@@ -1859,7 +2076,8 @@ def export_phase(dev, root: str) -> dict:
 
     from diffpir_tpu_torch.config import load_config
     from diffpir_tpu_torch.data import make_batches, prepare_images
-    from diffpir_tpu_torch.export import LoadedRestore, load_bundle, program_report, save_bundle
+    from diffpir_tpu_torch.export import (LoadedRestore, expected_report, load_bundle,
+                                          program_report, save_bundle)
     from diffpir_tpu_torch.kernels import LAUNCHES
     from diffpir_tpu_torch.kernels.build import BUILD_DIR
     from diffpir_tpu_torch.models.unet import AttentionBlock, GroupNorm32
@@ -1892,12 +2110,14 @@ def export_phase(dev, root: str) -> dict:
         loaded = load_bundle(path, device=dev)
         rep = program_report(loaded.programs["step"])
         pf = per_forward(runner.model)
-        if (rep["plain_nodes"] or rep["groupnorm_silu"] != pf["groupnorm_silu"]
-                or rep["legacy_qkv_attention"] != pf["legacy_qkv_attention"]):
+        # UNet calls a step makes (test_mode's ensemble and split make more)
+        calls = loaded._steps["noise"]["forwards"]
+        nodes = expected_report(runner, calls)
+        if rep["plain_nodes"] or any(rep[k] != v for k, v in nodes.items()):
             raise AssertionError(f"{name}: the step program holds {rep}; a forward calls "
-                                 f"{pf}")
+                                 f"{pf}, a step {calls} forwards: {nodes}")
         nfe = forwards_per_batch(cfg)
-        want = {k: v * nfe for k, v in pf.items()}
+        want = {k: v * nfe * calls for k, v in pf.items()}
         LAUNCHES.clear()
         live = runner.restore_batch(batch, seed=cfg.seed)
         live_launches = dict(LAUNCHES)
@@ -1916,7 +2136,8 @@ def export_phase(dev, root: str) -> dict:
         psnr_bundle = im.psnr_batch(got * 2 - 1, gt * 2 - 1)
         rec = dict(export_s=export_s, program_bytes=os.path.getsize(
             os.path.join(path, "program.pt2")), params_bytes=os.path.getsize(
-            os.path.join(path, "params.npz")), nfe=nfe, step_report=rep,
+            os.path.join(path, "params.npz")), nfe=nfe, forwards_per_step=calls,
+            step_report={k: v for k, v in rep.items() if v},
             max_abs_diff=float(np.abs(got - live).max()),
             bit_equal=bool(np.array_equal(got, live)), psnr_live=psnr_live,
             psnr_bundle=psnr_bundle, launches=bundle_launches,
@@ -1924,9 +2145,8 @@ def export_phase(dev, root: str) -> dict:
         out["launches"][name] = bundle_launches
         log(f"export {name}: exported in {export_s:.3f}s (program {rec['program_bytes']} "
             f"bytes, params {rec['params_bytes']} bytes); step program "
-            f"{rep['groupnorm_silu']} groupnorm_silu + {rep['legacy_qkv_attention']} "
-            f"legacy_qkv_attention nodes, {rep['plain_nodes']} plain-version nodes, "
-            f"{rep['call_function']} calls; bundle vs live max |diff| "
+            f"{rec['step_report']} ({calls} forwards a step), {rep['plain_nodes']} "
+            f"plain-version nodes; bundle vs live max |diff| "
             f"{rec['max_abs_diff']:.3e} (bit-equal {rec['bit_equal']}), PSNR bundle "
             f"{psnr_bundle:.4f} live {psnr_live:.4f} dB; launches {bundle_launches} "
             f"({nfe} forwards); boot {loaded.boot_timings}")
@@ -1948,12 +2168,15 @@ def export_phase(dev, root: str) -> dict:
                                  f"{rec['psnr_live']}")
         # ms per NFE, the bundle and the live runner in turns (no bar): wall
         # time of the fetched restore, and the card's time between events
-        ms = {"bundle": [], "live": [], "bundle_device": [], "live_device": []}
+        import resource
+
+        ms: dict = collections.defaultdict(list)
         for kind in ("bundle", "live", "live", "bundle"):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            ru0 = resource.getrusage(resource.RUSAGE_THREAD)
+            t0, c0 = time.perf_counter(), time.thread_time()
             start.record()
             if kind == "live":
                 runner.restore_batch(batch, seed=cfg.seed)
@@ -1962,10 +2185,22 @@ def export_phase(dev, root: str) -> dict:
             end.record()
             torch.cuda.synchronize()
             ms[kind].append((time.perf_counter() - t0) * 1e3 / rec["nfe"])
+            ms[kind + "_thread_cpu"].append((time.thread_time() - c0) * 1e3 / rec["nfe"])
             ms[kind + "_device"].append(start.elapsed_time(end) / rec["nfe"])
-        rec["ms_per_nfe"] = ms
-        log(f"export demo256_inpaint: ms per NFE (wall; between events) bundle "
-            f"{ms['bundle']}; {ms['bundle_device']} live {ms['live']}; {ms['live_device']}")
+            ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+            ms[kind + "_system"].append((ru1.ru_stime - ru0.ru_stime) * 1e3 / rec["nfe"])
+            ms[kind + "_minor_faults"].append(ru1.ru_minflt - ru0.ru_minflt)
+            ms[kind + "_switches"].append([ru1.ru_nvcsw - ru0.ru_nvcsw,
+                                           ru1.ru_nivcsw - ru0.ru_nivcsw])
+            ms[kind + "_os_threads"].append(len(os.listdir("/proc/self/task")))
+        rec["ms_per_nfe"] = ms = dict(ms)
+        log(f"export demo256_inpaint: ms per NFE (wall; between events; the main "
+            f"thread's CPU, system) bundle {ms['bundle']}; {ms['bundle_device']}; "
+            f"{ms['bundle_thread_cpu']}, {ms['bundle_system']} live {ms['live']}; "
+            f"{ms['live_device']}; {ms['live_thread_cpu']}, {ms['live_system']}; minor "
+            f"faults bundle {ms['bundle_minor_faults']} live {ms['live_minor_faults']}; "
+            f"(voluntary, involuntary) switches bundle {ms['bundle_switches']} live "
+            f"{ms['live_switches']}; OS threads {ms['bundle_os_threads']}")
         # the operator's host cost against the wrapper's, one GroupNorm call
         # of a DEMO256 shape, 200 back-to-back calls each
         from diffpir_tpu_torch.kernels.groupnorm import groupnorm_silu
@@ -1988,6 +2223,8 @@ def export_phase(dev, root: str) -> dict:
         log(f"export: groupnorm_silu host us per call, wrapper {host_us['wrapper']:.2f}, "
             f"operator {host_us['operator']:.2f}")
         if min(ms["bundle"]) > 1.25 * min(ms["live"]):
+            rec["c6"] = c6_probes(loaded, runner, batch, cfg.seed, rec["nfe"])
+            log("export demo256_inpaint: C6 probes " + json.dumps(rec["c6"]))
             # where a slow bundle's host time goes: one call under cProfile
             import cProfile
             import io as _io
@@ -2008,8 +2245,7 @@ def export_phase(dev, root: str) -> dict:
             log("export demo256_inpaint: the bundle is slower than the live runner; "
                 "cProfile of one call:\n" + text.getvalue() + f"\nother threads "
                 f"{[t.name for t in threading.enumerate()]}: {json.dumps(others)}")
-            # the caching allocator's traffic during one call of each, then
-            # the bundle again after emptying the cache
+            # the caching allocator's traffic during one call of each
             def alloc_stats(fn):
                 keys = ("num_alloc_retries", "num_device_alloc", "num_device_free",
                         "num_sync_all_streams")
@@ -2028,8 +2264,6 @@ def export_phase(dev, root: str) -> dict:
                                          seed=cfg.seed)
             stats = {"bundle": alloc_stats(bundle_call),
                      "live": alloc_stats(lambda: runner.restore_batch(batch, seed=cfg.seed))}
-            torch.cuda.empty_cache()
-            stats["bundle after empty_cache"] = alloc_stats(bundle_call)
             log(f"export demo256_inpaint: allocator during one call: {json.dumps(stats)}")
             # the card's time against the host's, one call of each under
             # torch.profiler
@@ -2141,6 +2375,21 @@ def export_phase(dev, root: str) -> dict:
         out["demo64_deblur"] = rec
         del runner
 
+        # the other modes on demo64 (fp32): pred_x_prev ancestral and DDIM,
+        # DPS_yt as phase tasks runs it, and test_mode 3 (the x8 ensemble:
+        # one UNet call of 8 x 4 images a step)
+        for name, opt, extra in EXPORT_MODE_BUNDLES:
+            mcfg = load_config(opt, {**over, **extra})
+            runner = Runner(mcfg, device=dev)
+            np.random.seed(mcfg.seed)
+            mbatch = make_batches(prepare_images(mcfg), mcfg.batch_size)[0]
+            *_, rec = bundle_vs_live(name, runner, mbatch)
+            if not rec["max_abs_diff"] <= EXPORT_DEBLUR_ATOL:
+                raise AssertionError(f"{name} bundle differs by {rec['max_abs_diff']}")
+            out[name] = rec
+            del runner
+        torch.cuda.empty_cache()
+
         # the diffusion_ffhq_10m topology at full width: 95M, seeded random
         # weights, bf16, b4, 256 px, 4 NFE
         fcfg = load_config("configs/demo256_inpaint.yaml", {
@@ -2153,6 +2402,43 @@ def export_phase(dev, root: str) -> dict:
         out["ffhq_inpaint"] = rec
         del runner
         torch.cuda.empty_cache()
+
+        # the same topology as a DPS_y0 deblur bundle (its step program
+        # differentiates through the UNet: a backward node per kernel node),
+        # 4 NFE on demo256's Levin PSFs; ms per NFE in turns, peak memory
+        fcfg = load_config("configs/demo256_deblur.yaml", {
+            **over, "model_name": "diffusion_ffhq_10m", "iter_num": EXPORT_FFHQ_ITER,
+            "generate_mode": "DPS_y0"})
+        runner = Runner(fcfg, device=dev)
+        np.random.seed(fcfg.seed)
+        fbatch = make_batches(prepare_images(fcfg), fcfg.batch_size)[0]
+        torch.cuda.reset_peak_memory_stats()
+        _, loaded, _, _, rec = bundle_vs_live("ffhq_dps_y0", runner, fbatch,
+                                              allow_random_weights=True)
+        rec["export_peak_bytes"] = torch.cuda.max_memory_allocated()
+        if not abs(rec["psnr_bundle"] - rec["psnr_live"]) <= EXPORT_PSNR_TOL_DB:
+            raise AssertionError(f"ffhq DPS_y0 bundle PSNR {rec['psnr_bundle']} vs live "
+                                 f"{rec['psnr_live']}")
+        ms, peak = {"bundle": [], "live": []}, {}
+        for kind in ("bundle", "live", "live", "bundle"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if kind == "live":
+                runner.restore_batch(fbatch, seed=fcfg.seed)
+            else:
+                loaded(fbatch.img_L, kernel=fbatch.kernel, seed=fcfg.seed)
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / rec["nfe"])
+            peak[kind] = torch.cuda.max_memory_allocated() - base
+        rec.update(ms_per_nfe=ms, peak_bytes_over_held=peak)
+        log(f"export ffhq_dps_y0: ms per NFE bundle {ms['bundle']} live {ms['live']}; "
+            f"peak bytes over those held bundle {peak['bundle']} live {peak['live']}; "
+            f"peak through the export {rec['export_peak_bytes']}")
+        out["ffhq_dps_y0"] = rec
+        del runner, loaded
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -2162,13 +2448,14 @@ def export_phase(dev, root: str) -> dict:
 # phase parallel: what the ranks run (each rank a process on the one card)
 # ---------------------------------------------------------------------------
 
-def _parallel_cfg(task, model_name, dtype, batch, iter_num, shape=None, axes=None):
+def _parallel_cfg(task, model_name, dtype, batch, iter_num, shape=None, axes=None,
+                  **extra):
     from diffpir_tpu_torch.config import load_config
 
     return load_config(None, overrides=dict(
         task=task, model_name=model_name, iter_num=iter_num, iter_num_U=1,
         batch_size=batch, noise_level_img=0.0, seed=0, dtype=dtype, save_L=False,
-        save_E=False, mesh_shape=shape, mesh_axes=axes))
+        save_E=False, mesh_shape=shape, mesh_axes=axes, **extra))
 
 
 def _parallel_restore(cfg, batch, nfe):
@@ -2247,7 +2534,72 @@ def parallel_pair(work: str) -> dict:
     del runner
     torch.cuda.empty_cache()
     res["bundle"] = parallel_bundle(work)
+    res["dps"] = parallel_dps(work)
+    res["space_bundle"] = parallel_space_bundle(work)
     return res
+
+
+def parallel_dps(work: str) -> dict:
+    """On ``parallel_pair``'s two ranks: DPS_y0 deblur of demo64 (fp32, b2,
+    2 NFE), which differentiates through the UNet at every step, under
+    model = 2 and then under space = 2; with no group, the same restore
+    unsharded."""
+    import torch.distributed as dist
+
+    from diffpir_tpu_torch.runner import _dryrun_batch
+
+    sharded = dist.is_initialized()
+    batch = _dryrun_batch(np.random.default_rng(6), 2, 64, "deblur")
+    out = {}
+    for axis in ("model", "space") if sharded else ("ref",):
+        cfg = _parallel_cfg("deblur", "demo64_hq", "float32", 2, PARALLEL_MESH3_ITER,
+                            (2,) if sharded else None, (axis,) if sharded else None,
+                            generate_mode="DPS_y0")
+        _, img, ms, peak, _, launches = _parallel_restore(cfg, batch,
+                                                          PARALLEL_MESH3_ITER - 1)
+        if _is_rank0():
+            np.save(os.path.join(work, f"dps_{axis}.npy"), img)
+        out[axis] = dict(ms_per_nfe=ms, peak_bytes=peak, launches=launches)
+    return out
+
+
+def parallel_space_bundle(work: str) -> dict:
+    """On ``parallel_pair``'s two ranks: a bundle of the DEMO256 prior's
+    inpaint restore under space = 2 in fp32 (b4, 4 NFE; in bf16 the
+    sharded GroupNorm's merged statistics round differently from the
+    unsharded ones, 8e-3 apart), exported by both ranks, loaded and run on
+    the group, its step program's operators counted; with no group, the
+    same restore unsharded."""
+    import torch.distributed as dist
+
+    from diffpir_tpu_torch.export import load_bundle, program_report, save_bundle
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.parallel.multihost import rank_device
+    from diffpir_tpu_torch.runner import Runner, _dryrun_batch
+
+    sharded = dist.is_initialized()
+    cfg = _parallel_cfg("inpaint", "demo256", "float32", 4, PARALLEL_ITER,
+                        (1, 2) if sharded else None, ("data", "space") if sharded else None)
+    batch = _dryrun_batch(np.random.default_rng(2), 4, 256, "inpaint")
+    runner = Runner(cfg, device=rank_device())
+    if not sharded:
+        np.save(os.path.join(work, "space_bundle_ref.npy"),
+                runner.restore_batch(batch, seed=0))
+        return {}
+    t0 = time.perf_counter()
+    path = save_bundle(runner, os.path.join(work, "space_bundle"), batch=4, height=256,
+                       width=256, platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    loaded = load_bundle(path, device=runner.device)
+    LAUNCHES.clear()
+    out = loaded(batch.img_L, mask=batch.mask, seed=0)
+    launches = dict(LAUNCHES)
+    if _is_rank0():
+        np.save(os.path.join(work, "space_bundle_ranks.npy"), out)
+    rep = program_report(loaded.programs["step"])
+    return dict(export_s=export_s, launches=launches, report={k: v for k, v in rep.items()
+                                                              if v},
+                mesh=loaded.manifest["mesh"]["shape"], weights=runner.weights_provenance)
 
 
 def parallel_mesh8(work: str) -> dict:
@@ -2431,6 +2783,51 @@ def parallel_phase(dev, root: str) -> dict:
         if not err <= DRYRUN_ATOL or bundle_launches != want:
             raise AssertionError(f"demo64 model=2 bundle: {err} from unsharded, launches "
                                  f"{bundle_launches} (expected {want})")
+        # DPS_y0 under model = 2 and under space = 2 (on the same two ranks)
+        nfe = PARALLEL_MESH3_ITER - 1
+        dps_launches = {}
+        for axis in ("model", "space"):
+            err = float(np.abs(load(f"dps_{axis}.npy") - load("dps_ref.npy")).max())
+            dps = [r["dps"][axis] for r in pair]
+            dps_launches[axis] = dps[0]["launches"]
+            runs.append(dict(run=f"demo64_hq DPS_y0 deblur, {axis} = 2, fp32 b2 64px",
+                             backend="gloo (host-staged)", world=2, mesh={axis: 2},
+                             max_abs_err=err,
+                             ms_per_nfe_per_rank=[r["ms_per_nfe"] for r in dps],
+                             peak_bytes_per_rank=[r["peak_bytes"] for r in dps],
+                             unsharded=dict(ms_per_nfe=ref["dps"]["ref"]["ms_per_nfe"],
+                                            peak_bytes=ref["dps"]["ref"]["peak_bytes"]),
+                             launches_rank0=dps[0]["launches"]))
+            want = ({"groupnorm_silu": 44 * nfe, "legacy_qkv_attention": nfe}
+                    if axis == "model" else
+                    {"groupnorm_partial_stats": 44 * nfe, "groupnorm_apply_stats": 44 * nfe,
+                     "legacy_qkv_attention": nfe})
+            if not err <= DRYRUN_ATOL or dps[0]["launches"] != want:
+                raise AssertionError(f"demo64 DPS_y0 {axis}=2: {err} from unsharded, "
+                                     f"launches {dps[0]['launches']} (expected {want})")
+        # the DEMO256 bundle under space = 2 (fp32), against the unsharded
+        # restore
+        err = float(np.abs(load("space_bundle_ranks.npy")
+                           - load("space_bundle_ref.npy")).max())
+        sb = [r["space_bundle"] for r in pair]
+        space_bundle_launches = sb[0]["launches"]
+        rep = sb[0]["report"]
+        runs.append(dict(run="demo256 bundle, data x space = 1x2, fp32 b4 256px",
+                         backend="gloo (host-staged)", world=2, mesh={"data": 1, "space": 2},
+                         max_abs_err=err, export_s=[r["export_s"] for r in sb],
+                         step_report=rep, launches_rank0=space_bundle_launches,
+                         weights=sb[0]["weights"]))
+        nfe = PARALLEL_ITER - 1
+        want = {"groupnorm_partial_stats": 65 * nfe, "groupnorm_apply_stats": 65 * nfe,
+                "legacy_qkv_attention": 4 * nfe}
+        halves = {k: rep.get(k, 0) for k in ("groupnorm_partial_stats",
+                                             "groupnorm_apply_stats",
+                                             "groupnorm_merge_stats")}
+        if (not err <= DRYRUN_ATOL or space_bundle_launches != want
+                or set(halves.values()) != {65} or rep.get("groupnorm_silu", 0)
+                or rep.get("plain_nodes", 0) or not rep.get("collectives")):
+            raise AssertionError(f"demo256 space=2 bundle: {err} from unsharded, launches "
+                                 f"{space_bundle_launches} (expected {want}), step {rep}")
         # the sharded train step
         train = spawn("chip_smoke:parallel_train", 4, [], env=env, timeout=600)
         ref_loss = dryrun_train_step(1)
@@ -2466,7 +2863,12 @@ def parallel_phase(dev, root: str) -> dict:
             "(8 ranks), rank start-up included")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(runs=runs, sp_launches=sp_launches, bundle_launches=bundle_launches)
+    return dict(runs=runs, sp_launches=sp_launches, bundle_launches=bundle_launches,
+                dps_launches=dps_launches, space_bundle_launches=space_bundle_launches)
+
+
+# the phases --only runs: each needs nothing of an earlier phase but the build
+ONLY_PHASES = {"export": export_phase, "parallel": parallel_phase}
 
 
 def timed_host_ms(fn, iters: int = 5) -> float:
@@ -2504,6 +2906,10 @@ def run(argv: list[str]) -> int:
                     help="stop after phase kernels; print its per-forward sums")
     ap.add_argument("--package-root", default=REPO,
                     help="checkout whose diffpir_tpu_torch (and kernels) to run")
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help="after build, run only these comma-separated phases of "
+                         f"{'/'.join(ONLY_PHASES)} and print their results (no result "
+                         "line)")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.package_root)
     if not torch.cuda.is_available():
@@ -2552,6 +2958,14 @@ def run(argv: list[str]) -> int:
         if root == REPO and build.spill_bytes(info.log):
             raise AssertionError(f"ptxas reports {build.spill_bytes(info.log)} bytes "
                                  "of spills")
+
+    if args.only:
+        for name in args.only.split(","):
+            if name not in ONLY_PHASES:
+                raise ValueError(f"--only takes {ONLY_PHASES}, got {name!r}")
+            with phase(name):
+                log(f"{name}: " + json.dumps(ONLY_PHASES[name](dev, root)))
+        return 0
 
     from diffpir_tpu_torch import sampler
     from diffpir_tpu_torch.config import load_config
@@ -2824,10 +3238,18 @@ def run(argv: list[str]) -> int:
             LAUNCHES.clear()
             FN_CALLS.clear()
             t0 = time.perf_counter()
-            res_seeds = [cli_main(argv + ["--set", f"seed={seed}"])[0]
-                         for seed in range(cfg.seed, cfg.seed + n_seeds)]
+            res_seeds = [cli_main(argv + ["--set", f"seed={cfg.seed}"])[0]]
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n_seeds
+            wall = time.perf_counter() - t0
+            if n_seeds > 1:
+                # the other seeds through one Runner: the CLI's evaluate
+                # (main.py: Runner(cfg).evaluate()) without reloading the
+                # weights for every seed
+                seeds_runner = Runner(load_config(opt, over), device=dev)
+                for seed in range(cfg.seed + 1, cfg.seed + n_seeds):
+                    seeds_runner.cfg.seed = seed
+                    res_seeds.append(seeds_runner.evaluate())
+                del seeds_runner
             task_launches[name] = dict(LAUNCHES)
             res = res_seeds[0]
             task_psnr[name] = res["psnr"]
@@ -2909,7 +3331,8 @@ def run(argv: list[str]) -> int:
                 f"{cfg.model_name} {cfg.dtype} weights={res['weights']} PSNR "
                 f"{psnr:.4f} dB{spread} (JAX CPU {jax_psnr:.4f}); seed {cfg.seed} "
                 f"{res['psnr']:.4f}, plain {res_plain['psnr']:.4f} (gap {gap:.4f}), SSIM "
-                f"{res['ssim']:.4f}, CLI {wall:.3f}s, {forwards} forwards, launches "
+                f"{res['ssim']:.4f}, CLI {wall:.3f}s (seed {cfg.seed}), {forwards} "
+                f"forwards, launches "
                 f"{task_launches[name]}; timed run {ms_nfe:.4f} ms per NFE: prox "
                 f"{prox_nfe:.4f} ms ({len(prox_events)} calls), UNet and renoise "
                 f"{ms_nfe - prox_nfe:.4f} ms; autograd.Function entries "
@@ -3074,7 +3497,9 @@ def run(argv: list[str]) -> int:
                                   **{f"export {b} bundle": n.get(name, 0)
                                      for b, n in export_out["launches"].items()},
                                   "parallel demo64 model=2 bundle rank 0":
-                                      parallel_out["bundle_launches"].get(name, 0)},
+                                      parallel_out["bundle_launches"].get(name, 0),
+                                  "parallel demo64 DPS_y0 model=2 rank 0":
+                                      parallel_out["dps_launches"]["model"].get(name, 0)},
             "max_abs_err": max(r["err"] for k, r in results.items() if k[0] == kind),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
@@ -3096,8 +3521,12 @@ def run(argv: list[str]) -> int:
                 parallel_out["runs"][0]["launches_rank0"].get(name, 0)
         else:
             record["kernels"][-1]["wide_heads_and_pairs"] = wide
-            record["kernels"][-1]["launches_per_path"]["parallel demo256 sp=2 rank 0"] = \
-                parallel_out["sp_launches"].get(name, 0)
+            paths = record["kernels"][-1]["launches_per_path"]
+            paths["parallel demo256 sp=2 rank 0"] = parallel_out["sp_launches"].get(name, 0)
+            paths["parallel demo256 space=2 bundle rank 0"] = \
+                parallel_out["space_bundle_launches"].get(name, 0)
+            paths["parallel demo64 DPS_y0 space=2 rank 0"] = \
+                parallel_out["dps_launches"]["space"].get(name, 0)
     # the two halves of the sharded GroupNorm, on the sp path: launches of
     # rank 0 of phase parallel's DEMO256 sp=2 restore, times summed over the
     # calls of one forward on a space rank
@@ -3109,6 +3538,12 @@ def run(argv: list[str]) -> int:
             "source": "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
             "replaces": "diffpir_tpu/pallas/groupnorm.py:73",
             "launches": parallel_out["sp_launches"].get(name, 0),
+            "launches_per_path": {
+                "parallel demo256 sp=2 rank 0": parallel_out["sp_launches"].get(name, 0),
+                "parallel demo256 space=2 bundle rank 0":
+                    parallel_out["space_bundle_launches"].get(name, 0),
+                "parallel demo64 DPS_y0 space=2 rank 0":
+                    parallel_out["dps_launches"]["space"].get(name, 0)},
             "max_abs_err": max(r[part]["err"] for r in half.values()),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],

@@ -10,21 +10,33 @@ bundle holds three exported programs and keeps the loop on the host:
     (``Runner.prox_state``: the FFT solve's complex64 spectra, or the
     observations the masked average, the first-order step or cubic
     back-projection read);
-  * ``step(params, x, y, mask, prox_state, coef, flags, t, noise, lambda,
-    zeta) -> x``: one (step, inner repeat) of the trajectory
-    (``sampler.diffpir_step``), every per-step value a tensor (a row of
-    ``sampler.step_tables``, the 0-d timestep, the (B,) operating point), so
-    one program serves every step;
+  * ``step(params, x, y, mask, state, coef, flags, t, noise, lambda, zeta)
+    -> x``: one step of the trajectory, every per-step value a tensor (a
+    row of the mode's step tables, the 0-d timestep, the step's draws, the
+    (B,) operating point), so one program serves every step.  DiffPIR,
+    repaint and vanilla: one (step, inner repeat) (``sampler.diffpir_step``,
+    ``sampler.step_tables``); ``pred_x_prev``: one ancestral or DDIM step
+    and, for inpainting, the masked average (``sampler.xprev_step``,
+    ``xprev_tables``); DPS_y0 and DPS_yt: the step and its gradient
+    correction (``guidance.dps_y0_step``, ``dps_yt_step``, ``dps_tables``).
+    ``test_mode`` 1-4 wraps the UNet calls of any of them
+    (``Runner.wrap_test_mode``: pad, split, x8 at the bundle's shapes);
   * ``epilogue(x, y, mask) -> x01``: ``recover_known`` and the map to [0, 1].
 
 The UNet's GroupNorm and attention are the operators
 ``diffpir_tpu_torch::groupnorm_silu`` and ``::legacy_qkv_attention``
 (``kernels/``), one opaque node per call: on the card each launches its CUDA
 kernel, on the CPU it runs its plain version.  A program whose graph holds a
-plain version inline is refused.  Tensor parallelism's collectives are the
-operators of ``parallel/collectives.py``.  The first-order prox takes a
-gradient, which ``torch.export`` does not trace: its aten graph, backward
-included, is recorded once with ``make_fx`` and the step calls that graph.
+plain version inline is refused.  The collectives of a mesh are the
+operators of ``parallel/collectives.py``; over a ``space`` axis the
+GroupNorm halves (``::groupnorm_partial_stats``, ``::groupnorm_apply_stats``,
+``::groupnorm_merge_stats``) and ``::halo_rows`` are operators too.  A
+gradient, which ``torch.export`` does not trace, is recorded with
+``make_fx`` as an aten graph, backward included, and the step calls that
+graph: the first-order prox's, and the whole DPS step (DPS_y0
+differentiates through the UNet: each kernel operator's autograd formula
+records one backward operator node per forward node, the plain version
+recomputed and differentiated).
 
   * ``export_restore``: the program archive (``.pt2``: the three programs
     and the step tables) as bytes;
@@ -41,16 +53,15 @@ included, is recorded once with ``make_fx`` and the step calls that graph.
 Parameters stay inputs of the step program (``torch.func.functional_call``),
 so ``reload_params`` refreshes a checkpoint without a re-export.  A bundle
 exported on one device loads on the other (``platforms``;
-``torch.export.passes.move_to_device_pass``).  Mesh bundles (``data`` and
-``model`` axes) record the mesh and each parameter's spec
-(``parallel/tp.py``); their programs are a rank's, with the model axis's
-collectives inside, and under a process group of the recorded size the
-loader shards the parameters, gives each data rank its rows and gathers the
-output.
-
-Refused, citing ROADMAP.md queue A item 14: ``pred_x_prev``, DPS_y0,
-DPS_yt and ``test_mode`` bundles, and bundles over a ``space`` axis.
-``log_process`` bundles return only the final image, as the JAX package's.
+``torch.export.passes.move_to_device_pass``).  Mesh bundles (``data``,
+``model`` and ``space`` axes) record the mesh and each parameter's spec
+(``parallel/tp.py``); their programs are a rank's, with the model and space
+axes' collectives inside, and under a process group of the recorded size
+the loader shards the parameters, gives each data rank its rows (a space
+rank takes whole images: the UNet splits them inside) and gathers the
+output.  Every rank of a mesh exports (a recorded gradient runs the
+collectives); rank 0 writes.  ``log_process`` bundles return only the
+final image, as the JAX package's.
 
     python -m diffpir_tpu_torch.export --opt configs/demo256_inpaint.yaml \\
         --out bundle/ [--batch B] [--hw H W] [--kernel KH KW] \\
@@ -76,11 +87,12 @@ import torch.distributed as dist
 # which a loaded program calls
 from diffpir_tpu_torch.kernels import attention as _attention  # noqa: F401
 from diffpir_tpu_torch.kernels import groupnorm as _groupnorm  # noqa: F401
+from diffpir_tpu_torch.kernels._common import OP_IMPLS, OPS_NAMESPACE, operators
 from diffpir_tpu_torch.parallel import collectives as coll
 from diffpir_tpu_torch.parallel.mesh import make_mesh, set_current_mesh, shard_tensor
 
 __all__ = ["export_restore", "save_bundle", "load_bundle", "LoadedRestore",
-           "program_report", "REFUSED"]
+           "program_report", "expected_report"]
 
 _MANIFEST = "manifest.json"
 _PROGRAM = "program.pt2"
@@ -89,11 +101,15 @@ _TABLES = "steps"            # the archive's extra file holding the step tables
 _AOT = "aot.{platform}.pt2"
 _AOT_LIB = "aot.cuda.so"     # the built kernel library, beside its digest
 _PROGRAMS = ("prologue", "step", "epilogue")
-REFUSED = "ROADMAP.md queue A item 14"
-
-
-def _refuse(what: str):
-    return NotImplementedError(f"{what} cannot be exported yet ({REFUSED})")
+# the operators that stand for a kernel (or its backward, or the sharded
+# GroupNorm's host-side merge); every other operator of the namespace is a
+# collective
+_FORWARD_OPS = ("groupnorm_silu", "legacy_qkv_attention", "groupnorm_partial_stats",
+                "groupnorm_apply_stats", "groupnorm_merge_stats")
+_KERNEL_OPS = _FORWARD_OPS + tuple(k + "_backward" for k in _FORWARD_OPS)
+# the draws of one step, by mode (the manifest's noise_order after "init")
+_PER_ROW = {"DiffPIR": ["rp", "n1", "n2", "n3"], "xprev": ["xprev"],
+            "DPS_y0": ["samp"], "DPS_yt": ["samp", "yt"]}
 
 
 def _check_exportable(runner, allow_random_weights: bool) -> None:
@@ -106,15 +122,6 @@ def _check_exportable(runner, allow_random_weights: bool) -> None:
             f"no trained weights found for model {cfg.model_name!r} — refusing to "
             f"export a random-weight bundle (pass allow_random_weights=True for test "
             f"fixtures)")
-    if cfg.model_output_type == "pred_x_prev":
-        raise _refuse("a pred_x_prev trajectory")
-    if cfg.generate_mode in ("DPS_y0", "DPS_yt"):
-        raise _refuse(f"a {cfg.generate_mode} trajectory")
-    if cfg.test_mode:
-        raise _refuse("test_mode")
-    if runner.mesh is not None and runner.mesh.axis_size("space") > 1:
-        raise _refuse("a bundle over a space axis (halo_rows and the GroupNorm "
-                      "halves as operators)")
     if runner.device.type == "meta":
         raise RuntimeError("an abstract Runner has no weights to export")
     if runner.model.kernels != "cuda":
@@ -123,11 +130,12 @@ def _check_exportable(runner, allow_random_weights: bool) -> None:
 
 
 def program_report(ep) -> dict:
-    """Counts of an exported program's calls: the kernels' operators, the
-    collectives, and ``plain_nodes``, the nodes only a plain version makes
-    (GroupNorm's ``rsqrt``, attention's ``softmax``), which must be 0."""
-    out = {"groupnorm_silu": 0, "legacy_qkv_attention": 0, "collectives": 0,
-           "plain_nodes": 0, "call_function": 0}
+    """Counts of an exported program's calls: each kernel operator and its
+    backward (``_KERNEL_OPS``), the collectives, and ``plain_nodes``, the
+    nodes only a plain version makes (GroupNorm's ``rsqrt``, attention's
+    ``softmax``), which must be 0."""
+    out = dict.fromkeys(_KERNEL_OPS, 0)
+    out.update(collectives=0, plain_nodes=0, call_function=0)
     for node in ep.graph.nodes:
         if node.op != "call_function":
             continue
@@ -142,6 +150,35 @@ def program_report(ep) -> dict:
         elif "rsqrt" in name or "softmax" in name:
             out["plain_nodes"] += 1
     return out
+
+
+def _mode(cfg) -> str:
+    if cfg.model_output_type == "pred_x_prev":
+        return "xprev"
+    if cfg.generate_mode in ("DPS_y0", "DPS_yt"):
+        return cfg.generate_mode
+    return "DiffPIR"
+
+
+def expected_report(runner, forwards: int) -> dict:
+    """The kernel operator nodes a step program of ``runner``'s mode holds
+    when a step makes ``forwards`` UNet calls: each GroupNorm and attention
+    call of a forward once (the sharded GroupNorm's halves and merge over a
+    ``space`` axis), and once more as its backward in DPS_y0."""
+    gn, attn = _unet_calls(runner.model)
+    space = runner.mesh is not None and runner.mesh.axis_size("space") > 1
+    fwd = {"legacy_qkv_attention": attn * forwards}
+    if space:
+        fwd.update({k: gn * forwards for k in ("groupnorm_partial_stats",
+                                                "groupnorm_apply_stats",
+                                                "groupnorm_merge_stats")})
+    else:
+        fwd["groupnorm_silu"] = gn * forwards
+    want = dict.fromkeys(_KERNEL_OPS, 0)
+    want.update(fwd)
+    if _mode(runner.cfg) == "DPS_y0":
+        want.update({k + "_backward": v for k, v in fwd.items()})
+    return want
 
 
 def _strip_asserts(ep) -> None:
@@ -164,21 +201,34 @@ def _unet_calls(model) -> tuple[int, int]:
 
 
 class _Prologue(torch.nn.Module):
-    def __init__(self, runner, use_prox: bool):
+    def __init__(self, runner, state: str):
         super().__init__()
         self.__dict__["runner"] = runner     # not a submodule: no lifted weights
-        self.use_prox = use_prox
+        self.state = state                   # "prox", "kernel" or "none"
 
     def forward(self, y, kernel, mask, n0):
         r = self.runner
         x = r.initial_x(y, mask, n0)
-        state = r.prox_state(y, kernel, mask) if self.use_prox else ()
+        state = {"prox": lambda: r.prox_state(y, kernel, mask),
+                 "kernel": lambda: (kernel,), "none": tuple}[self.state]()
         # a program's outputs are its own tensors, not its inputs
         return (x,) + tuple(s.clone() if any(s is a for a in (y, kernel, mask)) else s
                             for s in state)
 
 
+def _unet_call(runner, names, params):
+    """The runner's denoiser with the UNet called on ``params`` (the step
+    program's inputs), wrapped in ``test_mode`` as the runner's is."""
+    import dataclasses
+
+    weights = dict(zip(names, params))
+    return dataclasses.replace(runner.den, model=runner.wrap_test_mode(
+        lambda xv, tv: torch.func.functional_call(runner.model, weights, (xv, tv))))
+
+
 class _Step(torch.nn.Module):
+    """A DiffPIR, repaint or vanilla (step, inner repeat)."""
+
     def __init__(self, runner, names, prox, repaint: bool, setback: bool):
         super().__init__()
         self.__dict__["runner"] = runner
@@ -187,14 +237,9 @@ class _Step(torch.nn.Module):
         self.repaint, self.setback = repaint, setback
 
     def forward(self, params, x, y, mask, state, coef, flags, t, noise, lam, zeta):
-        import dataclasses
-
         from diffpir_tpu_torch.sampler import diffpir_step
 
-        r = self.runner
-        weights = dict(zip(self.names, params))
-        den = dataclasses.replace(r.den, model=lambda xv, tv: torch.func.functional_call(
-            r.model, weights, (xv, tv)))
+        den = _unet_call(self.runner, self.names, params)
         zeta_b = zeta.reshape(-1, 1, 1, 1)
         # the draws of one row in the manifest's noise order
         noise = list(noise)
@@ -207,6 +252,38 @@ class _Step(torch.nn.Module):
             lam_b=lam.reshape(-1, 1, 1, 1), rp=rp, n3=n3,
             y2=(2.0 * y - 1.0).float() if self.repaint else None,
             mask=mask if self.repaint else None)
+
+
+class _XprevStep(torch.nn.Module):
+    """A ``pred_x_prev`` step: ancestral or DDIM, and for inpainting the
+    masked average (deblur and SR take no data term in this mode)."""
+
+    def __init__(self, runner, names):
+        super().__init__()
+        self.__dict__["runner"] = runner
+        self.names = list(names)
+        self.inpaint = runner.cfg.task == "inpaint"
+
+    def forward(self, params, x, y, mask, state, coef, flags, t, noise, lam, zeta):
+        from diffpir_tpu_torch.sampler import model_fn, xprev_step
+
+        r = self.runner
+        return xprev_step(
+            r.diffusion, model_fn(_unet_call(r, self.names, params)), x, coef, flags, t,
+            noise[0], ddim=r.cfg.ddim_sample,
+            y2=(2.0 * y - 1.0).float() if self.inpaint else None,
+            mask=mask if self.inpaint else None, lam_b=lam.reshape(-1, 1, 1, 1))
+
+
+class _RecordedStep(torch.nn.Module):
+    """A step whose graph ``make_fx`` recorded (a DPS step: its gradient)."""
+
+    def __init__(self, gm):
+        super().__init__()
+        self.gm = gm
+
+    def forward(self, params, x, y, mask, state, coef, flags, t, noise, lam, zeta):
+        return self.gm(params, x, y, coef, t, noise, lam, *state)
 
 
 class _Epilogue(torch.nn.Module):
@@ -230,18 +307,71 @@ def _traced_prox(runner, state, x0, tau):
         return runner.prox_from_state
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    gm = make_fx(lambda x, t, *st: runner.prox_from_state(st)(x, t))(x0, tau, *state)
+    with operators():
+        gm = make_fx(lambda x, t, *st: runner.prox_from_state(st)(x, t))(x0, tau, *state)
     return lambda st: (lambda x, t: gm(x, t, *st))
+
+
+def _recorded_dps(runner, names, lam_const: Optional[float], example):
+    """The whole DPS step as an aten graph (``make_fx``): DPS_y0's gradient
+    runs back through the UNet, so the graph holds each kernel operator's
+    backward node.  ``lam_const`` is the fixed operating point's lambda
+    (None: the per-sample input)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from diffpir_tpu_torch.guidance import dps_y0_step, dps_yt_step, make_degrade_op
+    from diffpir_tpu_torch.sampler import model_fn
+
+    cfg, mesh = runner.cfg, runner.mesh
+    sf = cfg.sf if cfg.task == "sr" else 1
+    batch_sum = None
+    if mesh is not None and mesh.axis_size("data") > 1:
+        batch_sum = lambda v: coll.all_reduce_sum(v, mesh, "data")  # noqa: E731
+
+    def step(params, x, y, coef, t, noise, lam, *state):
+        model = model_fn(_unet_call(runner, names, params))
+        op = make_degrade_op(cfg.task, kernel=state[0] if state else None,
+                             hr_hw=(y.shape[1] * sf, y.shape[2] * sf), sf=cfg.sf)
+        if cfg.generate_mode == "DPS_y0":
+            meas = y if cfg.task == "deblur" else 2.0 * y - 1.0
+            return dps_y0_step(runner.diffusion, model, op, x, t, noise[0], meas,
+                               batch_sum)
+        lam_b = lam.reshape(-1, 1, 1, 1) if lam_const is None else lam_const
+        return dps_yt_step(runner.diffusion, model, op, x, coef, t, noise[0], noise[1],
+                           y, task=cfg.task, lam_b=lam_b)
+
+    with operators():
+        gm = make_fx(step)(*example)
+    # a view recorded on the card's tensors may not hold for the strides
+    # torch.export's fake tensors give the same values (cuDNN's backward
+    # returns channels_last where the meta kernel returns contiguous):
+    # reshape, which views where it can
+    _views_to_reshape(gm)
+    return gm
+
+
+_VIEWS = ("aten.view.default", "aten._unsafe_view.default")
+
+
+def _views_to_reshape(gm) -> None:
+    """Every view node of ``gm`` as ``aten.reshape`` (a view where the
+    strides allow, else a copy)."""
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and str(node.target) in _VIEWS:
+            node.target = torch.ops.aten.reshape.default
+    gm.recompile()
 
 
 def _export_programs(runner, *, batch: int, height: int, width: int,
                      kernel_hw: tuple[int, int], lambda_: float, dynamic_point: bool):
     """The three ExportedPrograms, the step tables and the noise order, for
     this rank's rows of a ``batch``."""
-    from diffpir_tpu_torch.sampler import STEP_COLUMNS, step_tables
+    from diffpir_tpu_torch.guidance import dps_tables
+    from diffpir_tpu_torch.sampler import STEP_COLUMNS, step_tables, xprev_tables
 
     cfg = runner.cfg
     mesh = runner.mesh
+    mode = _mode(cfg)
     n_data = 1 if mesh is None else mesh.axis_size("data")
     if batch % n_data:
         raise ValueError(f"a batch of {batch} does not split over {n_data} data ranks")
@@ -256,46 +386,78 @@ def _export_programs(runner, *, batch: int, height: int, width: int,
     hr = (b, height * sf, width * sf, c)
     mask = torch.ones(hr, **f32)
     n0 = torch.zeros(hr, **f32)
-    use_prox = cfg.generate_mode == "DiffPIR"
-    repaint = cfg.generate_mode == "repaint"
-    setback = cfg.iter_num_U > 1
+    use_prox = mode == "DiffPIR" and cfg.generate_mode == "DiffPIR"
+    repaint = mode == "DiffPIR" and cfg.generate_mode == "repaint"
+    setback = mode == "DiffPIR" and cfg.iter_num_U > 1
     plan = runner._plan(1.0 if dynamic_point else lambda_)
-    tables = step_tables(runner.den, plan, cfg.iter_num_U)
+    tables = {"DiffPIR": lambda: step_tables(runner.den, plan, cfg.iter_num_U),
+              "xprev": lambda: xprev_tables(plan)}.get(mode, lambda: dps_tables(plan))()
     names = [n for n, _ in runner.model.named_parameters()]
     params = [p.detach() for _, p in runner.model.named_parameters()]
-    with torch.no_grad():
-        prologue = _Prologue(runner, use_prox)
-        x, *state = prologue(y, kern, mask, n0)
-        ep_pro = torch.export.export(prologue, (y, kern, mask, n0))
-        lam = torch.ones((b,), **f32)
-        zeta = torch.full((b,), float(cfg.zeta), **f32)
-        prox = None
-        if use_prox:
-            rho = STEP_COLUMNS.index("rho")
-            tau = (torch.from_numpy(tables.coef[0, rho:rho + 1]).to(dev)
-                   * lam.reshape(-1, 1, 1, 1))
-            prox = _traced_prox(runner, tuple(state), x.clone(), tau)
-        noise = [torch.zeros(hr, **f32) for _ in range(2 + repaint + setback)]
-        args = (params, x, y, mask, list(state),
-                torch.from_numpy(tables.coef[0]).to(dev),
-                torch.from_numpy(tables.flags[0]).to(dev),
-                torch.from_numpy(tables.t[:1]).to(dev)[0], noise, lam, zeta)
-        ep_step = torch.export.export(_Step(runner, names, prox, repaint, setback), args)
-        recover = cfg.task == "inpaint" and cfg.recover_known
-        ep_epi = torch.export.export(_Epilogue(recover), (x, y, mask))
+    # the diffusion's tables, made now under the device the tensors report
+    # (cuda:0, not cuda): made inside the trace, the cache would keep the
+    # trace's fake tensors
+    runner.diffusion._tables(y.device)
+    per_row = [k for k in _PER_ROW[mode] if (k != "rp" or repaint)
+               and (k != "n3" or setback)]
+    shapes = {"yt": [b, height, width, c]}
+    # the UNet calls of one step (test_mode makes several), counted while
+    # the step is recorded and traced
+    forwards = [0]
+    hook = runner.model.register_forward_pre_hook(
+        lambda m, a: forwards.__setitem__(0, forwards[0] + 1))
+    try:
+        with torch.no_grad():
+            state_kind = ("prox" if use_prox else
+                          "kernel" if mode.startswith("DPS") and cfg.task == "deblur"
+                          else "none")
+            prologue = _Prologue(runner, state_kind)
+            x, *state = prologue(y, kern, mask, n0)
+            ep_pro = torch.export.export(prologue, (y, kern, mask, n0))
+            lam = torch.ones((b,), **f32)
+            zeta = torch.full((b,), float(cfg.zeta), **f32)
+            noise = [torch.zeros(tuple(shapes.get(k, hr)), **f32) for k in per_row]
+            coef, flags = (torch.from_numpy(tables.coef[0]).to(dev),
+                           torch.from_numpy(tables.flags[0]).to(dev))
+            t0 = torch.from_numpy(tables.t[:1]).to(dev)[0]
+            args = (params, x, y, mask, list(state), coef, flags, t0, noise, lam, zeta)
+            forwards[0] = 0
+            if mode == "DiffPIR":
+                prox = None
+                if use_prox:
+                    rho = STEP_COLUMNS.index("rho")
+                    tau = (torch.from_numpy(tables.coef[0, rho:rho + 1]).to(dev)
+                           * lam.reshape(-1, 1, 1, 1))
+                    prox = _traced_prox(runner, tuple(state), x.clone(), tau)
+                step = _Step(runner, names, prox, repaint, setback)
+            elif mode == "xprev":
+                step = _XprevStep(runner, names)
+            else:
+                lam_const = None if dynamic_point else float(lambda_)
+                step = _RecordedStep(_recorded_dps(
+                    runner, names, lam_const,
+                    (params, x.clone(), y, coef, t0, noise, lam, *state)))
+            ep_step = torch.export.export(step, args)
+        recover = cfg.task == "inpaint" and cfg.recover_known and mode in ("DiffPIR",
+                                                                          "xprev")
+        with torch.no_grad():
+            ep_epi = torch.export.export(_Epilogue(recover), (x, y, mask))
+    finally:
+        hook.remove()
     for ep in (ep_pro, ep_step, ep_epi):
         _strip_asserts(ep)
         # the archive would otherwise keep the trace's inputs: a copy of the
         # parameters, which params.npz holds
         ep.example_inputs = None
     rep = program_report(ep_step)
-    gn, attn = _unet_calls(runner.model)
-    if rep["plain_nodes"] or (rep["groupnorm_silu"], rep["legacy_qkv_attention"]) != (gn, attn):
+    want = expected_report(runner, forwards[0])
+    if rep["plain_nodes"] or any(rep[k] != v for k, v in want.items()):
         raise RuntimeError(f"the step program does not hold the kernels as operators "
-                           f"({rep}; a forward calls {gn} GroupNorm and {attn} attention)")
-    per_row = (["rp"] if repaint else []) + ["n1", "n2"] + (["n3"] if setback else [])
+                           f"({rep}; {forwards[0]} UNet calls a step give {want})")
+    # a recorded step's views are reshapes at run time too (_bind_kernels)
     return ({"prologue": ep_pro, "step": ep_step, "epilogue": ep_epi}, tables,
-            dict(init=list(hr), per_row=per_row))
+            dict(init=list(hr), per_row=per_row, shapes=shapes, forwards=forwards[0],
+                 reshape_views=mode.startswith("DPS")))
 
 
 def _archive(programs: dict, tables, noise: dict) -> bytes:
@@ -383,13 +545,15 @@ def save_bundle(runner, path: str, *, batch: int, height: int, width: int,
     _check_exportable(runner, allow_random_weights)
     names, full, specs = _full_params(runner)
     writer = mesh is None or not dist.is_initialized() or dist.get_rank() == 0
+    # every rank of a mesh exports: a recorded gradient (DPS) runs the
+    # collectives of its program, which need every rank; rank 0 writes
+    # zeta is an input of the step program: the manifest records the
+    # bundle's, which the loader passes
+    blob = export_restore(runner, batch=batch, height=height, width=width,
+                          kernel_hw=kernel_hw, lambda_=lambda_,
+                          dynamic_point=dynamic_point, platforms=platforms,
+                          allow_random_weights=allow_random_weights)
     if writer:
-        # zeta is an input of the step program: the manifest records the
-        # bundle's, which the loader passes
-        blob = export_restore(runner, batch=batch, height=height, width=width,
-                              kernel_hw=kernel_hw, lambda_=lambda_,
-                              dynamic_point=dynamic_point, platforms=platforms,
-                              allow_random_weights=allow_random_weights)
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, _PROGRAM), "wb") as f:
             f.write(blob)
@@ -408,8 +572,10 @@ def save_bundle(runner, path: str, *, batch: int, height: int, width: int,
             mesh=mesh_info, dynamic_point=dynamic_point, lambda_=lambda_, zeta=zeta,
             # the port's own keys
             iter_num_U=cfg.iter_num_U, generate_mode=cfg.generate_mode,
+            model_output_type=cfg.model_output_type, ddim_sample=cfg.ddim_sample,
+            test_mode=cfg.test_mode,
             param_dtypes=[str(p.dtype).replace("torch.", "") for p in full],
-            noise_order=["init", "rp", "n1", "n2", "n3"],
+            noise_order=["init"] + _PER_ROW[_mode(cfg)],
             exported_on=runner.device.type, torch=torch.__version__)
         with open(os.path.join(path, _MANIFEST), "w") as f:
             json.dump(manifest, f, indent=1)
@@ -418,23 +584,53 @@ def save_bundle(runner, path: str, *, batch: int, height: int, width: int,
     return path
 
 
-def _bind_kernels(gm, device: torch.device):
-    """A copy of ``gm`` whose kernel operator nodes call the implementation
-    the dispatcher would pick on ``device`` directly (``_launch`` on the
-    card, the plain version on the CPU), as the eager wrappers do, without
-    the dispatcher's call into a Python implementation on every kernel
-    call; the program file keeps the operators."""
-    from diffpir_tpu_torch.kernels._common import OP_IMPLS, OPS_NAMESPACE
+# CPython (3.11, 3.12) keeps each thread's frames on chunks of 16 KiB and
+# frees a chunk when the frame that opened it returns.  A frame that ends a
+# few hundred bytes short of a chunk's end therefore maps and unmaps a chunk
+# on every call it makes.  A step program's forward (one local per node:
+# 8-15 KiB) makes about a thousand calls a step, so at an unlucky depth of
+# its caller a bundle ran 2.5-5x slower, all of it host time (ROADMAP C6).
+# A frame larger than a power of two of at least a chunk always opens a
+# chunk of its own, twice that size, which leaves room for its calls.
+_FRAME_SLOT = 8               # bytes per slot of a frame
+_CHUNK = 16 * 1024            # bytes per chunk
 
+
+def _own_chunk(fn) -> None:
+    """Pad ``fn``'s frame (its value stack) so that every call of it opens
+    a data-stack chunk of its own with room for the calls it makes."""
+    code = fn.__code__
+    n_vars = len(code.co_varnames) + len(code.co_cellvars) + len(code.co_freevars)
+    size = _CHUNK
+    while size < (n_vars + code.co_stacksize) * _FRAME_SLOT:
+        size *= 2
+    # 512 bytes more than the power of two: too big for a chunk of that size
+    fn.__code__ = code.replace(co_stacksize=max(
+        code.co_stacksize, (size + 512) // _FRAME_SLOT - n_vars))
+
+
+def _bind_kernels(gm, device: torch.device, reshape_views: bool = False):
+    """A copy of ``gm`` whose operator nodes (the kernels, their backwards
+    and the collectives) call the implementation the dispatcher would pick
+    on ``device`` directly (``_launch`` on the card, the plain version on
+    the CPU), as the eager wrappers do, without the dispatcher's call into
+    a Python implementation on every call; the program file keeps the
+    operators.  ``reshape_views``: the views of a recorded step
+    (``_recorded_dps``) as reshapes, since the real strides may differ
+    from those the trace saw."""
     key = "CUDA" if device.type == "cuda" else "CPU"
     graph = torch.fx.Graph()
     graph.output(graph.graph_copy(gm.graph, {}))
     for node in graph.nodes:
         parts = str(node.target).split(".")
         if (node.op == "call_function" and parts[0] == OPS_NAMESPACE
-                and parts[1] in ("groupnorm_silu", "legacy_qkv_attention")):
+                and (parts[1], key) in OP_IMPLS):
             node.target = OP_IMPLS[(parts[1], key)]
-    return torch.fx.GraphModule(gm, graph)
+    bound = torch.fx.GraphModule(gm, graph)
+    if reshape_views:
+        _views_to_reshape(bound)
+    _own_chunk(type(bound).forward)
+    return bound
 
 
 class _Program:
@@ -443,7 +639,7 @@ class _Program:
     ``ExportedProgram.module()`` does, without its per-call input checks),
     its kernel operators bound to their implementations on ``device``."""
 
-    def __init__(self, ep, device: torch.device):
+    def __init__(self, ep, device: torch.device, reshape_views: bool = False):
         from torch.export.graph_signature import InputKind
 
         specs = ep.graph_signature.input_specs
@@ -453,7 +649,7 @@ class _Program:
             raise RuntimeError("an exported program's lifted inputs are not first")
         tables = {**ep.state_dict, **ep.constants}
         self.lifted = [tables[s.target] for s in specs[:n_lifted]]
-        self.gm = _bind_kernels(ep.graph_module, device)
+        self.gm = _bind_kernels(ep.graph_module, device, reshape_views)
         self.ep = ep
 
     def __call__(self, *flat):
@@ -540,7 +736,7 @@ class LoadedRestore:
                         raise RuntimeError("the kernel library was built from other "
                                            "sources, flags or torch")
             programs, self._steps = _load_archive(p, self.device, move=False)
-            self._programs = {k: _Program(ep, self.device) for k, ep in programs.items()}
+            self._programs = self._bind(programs)
         except Exception as e:  # a stale or foreign sidecar: the portable path serves
             warnings.warn(f"ignoring AOT sidecar {p}: {e!r}")
             self._programs = self._steps = None
@@ -555,8 +751,13 @@ class LoadedRestore:
         programs, self._steps = _load_archive(
             os.path.join(self._path, _PROGRAM), self.device,
             move=self.manifest["exported_on"] != self.device.type)
-        self._programs = {k: _Program(ep, self.device) for k, ep in programs.items()}
+        self._programs = self._bind(programs)
         self.boot_timings["program_load_s"] = round(time.perf_counter() - t, 3)
+
+    def _bind(self, programs: dict) -> dict:
+        reshape = self._steps["noise"].get("reshape_views", False)
+        return {k: _Program(ep, self.device, reshape and k == "step")
+                for k, ep in programs.items()}
 
     def _read_params(self, path: str) -> list:
         m = self.manifest
@@ -680,10 +881,11 @@ class LoadedRestore:
         dev = self.device
         if self._steps_dev is None:
             s = self._steps
+            flags = np.asarray(s["flags"], bool)
             self._steps_dev = (torch.tensor(s["coef"], dtype=torch.float32, device=dev),
-                               torch.tensor(s["flags"], dtype=torch.bool, device=dev),
+                               torch.from_numpy(flags).to(dev),
                                torch.tensor(s["t"], dtype=torch.int32, device=dev),
-                               np.asarray(s["flags"], bool))
+                               flags)
         coef, flags, ts, flags_host = self._steps_dev
         noise_spec = self._steps["noise"]
         mesh = self._mesh
@@ -704,6 +906,7 @@ class LoadedRestore:
         y, kernel, mask, lam, zeta = (a[rows] for a in (y, kernel, mask, lam, zeta))
         pro, step, epi = (self._programs[k] for k in _PROGRAMS)
         shape = noise_spec["init"]
+        shapes = noise_spec.get("shapes", {})
         with torch.no_grad():
             x, *state = pro(y, kernel, mask, draw(shape))
             per_row = noise_spec["per_row"]
@@ -714,13 +917,18 @@ class LoadedRestore:
                     if which == "n3" and not flags_host[k, 2]:
                         noise.append(zeros)
                     else:
-                        noise.append(draw(shape))
+                        noise.append(draw(shapes.get(which, shape)))
                 (x,) = step(*self._params, x, y, mask, *state, coef[k], flags[k], ts[k],
                             *noise, lam, zeta)
             (out,) = epi(x, y, mask)
         if n_data > 1:
             out = coll.all_gather(out, mesh, "data", 0)
         return out
+
+
+# the restore's loop and everything under it at one place of a chunk of its
+# own, whatever the caller's depth
+_own_chunk(LoadedRestore.__call__)
 
 
 def load_bundle(path: str, *, device: Optional[torch.device | str] = None,
@@ -739,6 +947,7 @@ def main(argv: Optional[list] = None) -> None:
 
     from diffpir_tpu_torch import resolve_device
     from diffpir_tpu_torch.config import load_config, parse_overrides
+    from diffpir_tpu_torch.parallel import multihost
     from diffpir_tpu_torch.runner import Runner
 
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
@@ -763,6 +972,11 @@ def main(argv: Optional[list] = None) -> None:
                          "serving processes boot without moving a program or nvcc")
     args = ap.parse_args(argv)
     device = resolve_device(args.cpu)
+    # under torchrun every rank builds its shard of a mesh bundle
+    multihost.initialize(backend="gloo" if args.cpu else None)
+    rank, world = multihost.process_shard_info()
+    if world > 1 and device.type == "cuda":
+        device = multihost.rank_device()
     cfg = load_config(args.opt, parse_overrides(args.set))
     runner = Runner(cfg, device=device)
     t0 = time.perf_counter()
@@ -770,6 +984,8 @@ def main(argv: Optional[list] = None) -> None:
                        height=args.hw[0], width=args.hw[1], kernel_hw=tuple(args.kernel),
                        dynamic_point=args.dynamic_point, platforms=tuple(args.platforms),
                        allow_random_weights=args.allow_random_weights)
+    if rank:
+        return
     size = os.path.getsize(os.path.join(path, _PROGRAM))
     print(f"wrote {path} (program {size / 1e6:.2f} MB, platforms {args.platforms}, "
           f"exported in {time.perf_counter() - t0:.1f}s)")

@@ -13,15 +13,18 @@ ch^-1/4; logits and softmax are fp32; the output is (B, T, C).
 
 ``legacy_qkv_attention`` runs the plain version for a CPU tensor and the CUDA
 kernel for a CUDA tensor; it never falls back from one to the other.  Where a
-gradient is asked for (grad mode on and qkv requires one), the CUDA launch
-runs inside ``LegacyQKVAttentionFunction``, whose backward is in PyTorch
-operations (the TPU kernel has no backward kernel to port).
+gradient is asked for (grad mode on and qkv requires one), the launch (on
+the CPU the plain version) runs inside ``LegacyQKVAttentionFunction``, whose
+backward recomputes the plain version and differentiates it (the TPU kernel
+has no backward kernel to port, and the kernel stays forward-only).
 
 The same function is the operator
 ``torch.ops.diffpir_tpu_torch.legacy_qkv_attention`` (``_common.define_op``;
-CPU: the plain version; CUDA: ``_launch``; a fake one for the shapes), which the
-wrapper emits inside a ``torch.export`` trace; an eager call keeps the
-direct path.
+CPU: the plain version; CUDA: ``_launch``; a fake one for the shapes), with
+an autograd formula that calls ``::legacy_qkv_attention_backward`` (the same
+recompute, on both keys).  While a program is recorded (a ``torch.export``
+trace, ``_common.operators()``) the wrapper emits the operator; an eager
+call keeps the direct path.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ from diffpir_tpu_torch.kernels import LAUNCHES
 from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                check_cuda_tensor,
                                                current_stream_handle, define_op,
-                                               raise_on_error, wants_grad)
+                                               emit_operators, raise_on_error,
+                                               recompute_grads, wants_grad)
 
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
-           "LegacyQKVAttentionFunction", "attention_rows_per_block", "check_inputs"]
+           "LegacyQKVAttentionFunction", "legacy_qkv_attention_backward",
+           "attention_rows_per_block", "check_inputs"]
 
 # head widths the kernel takes: tuned paths run 16, 32 and 64, the other
 # widths' kernels the rest up to WIDE_HEAD_CHANNELS, attn_wide every wider one
@@ -133,42 +138,41 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
-class LegacyQKVAttentionFunction(torch.autograd.Function):
-    """The kernel's forward with a gradient for qkv.
+def legacy_qkv_attention_backward(grad: torch.Tensor, qkv: torch.Tensor,
+                                  num_heads: int) -> torch.Tensor:
+    """The gradient of ``legacy_qkv_attention`` for qkv: the plain version
+    recomputed and differentiated, so it is by construction the plain
+    version's.  The backward of both the Function and the operator."""
+    return recompute_grads(legacy_qkv_attention_plain, grad, (qkv,), (True,),
+                           num_heads)[0]
 
-    The backward recomputes the plain version under ``torch.enable_grad``
-    and differentiates it with ``torch.autograd.grad``: the gradient is then
-    by construction the plain version's, at the cost of one plain forward
-    per backward on the only path that asks for one (DPS_y0).
-    """
+
+class LegacyQKVAttentionFunction(torch.autograd.Function):
+    """The kernel's forward with a gradient for qkv
+    (``legacy_qkv_attention_backward``: one plain forward per backward, on
+    the paths that ask for one)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads):
         ctx.save_for_backward(qkv)
         ctx.num_heads = num_heads
-        return _launch(qkv, num_heads)
+        return (_launch if qkv.is_cuda else legacy_qkv_attention_plain)(qkv, num_heads)
 
     @staticmethod
     def backward(ctx, grad_out):
         (qkv,) = ctx.saved_tensors
-        with torch.enable_grad():
-            q = qkv.detach().requires_grad_()
-            (grad,) = torch.autograd.grad(
-                legacy_qkv_attention_plain(q, ctx.num_heads), q, grad_out)
-        return grad, None
+        return legacy_qkv_attention_backward(grad_out, qkv, ctx.num_heads), None
 
 
 def legacy_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """qkv: (B, T, 3*C) with layout [head][q|k|v][head_dim] -> (B, T, C)."""
-    if torch.compiler.is_exporting():
+    if emit_operators():
         return torch.ops.diffpir_tpu_torch.legacy_qkv_attention(qkv, num_heads)
-    if qkv.device.type == "cpu":
-        return legacy_qkv_attention_plain(qkv, num_heads)
-    if qkv.device.type != "cuda":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"legacy_qkv_attention: unsupported device {qkv.device}")
     if wants_grad(qkv):
         return LegacyQKVAttentionFunction.apply(qkv, num_heads)
-    return _launch(qkv, num_heads)
+    return (_launch if qkv.is_cuda else legacy_qkv_attention_plain)(qkv, num_heads)
 
 
 def _legacy_qkv_attention_fake(qkv, num_heads):
@@ -176,6 +180,14 @@ def _legacy_qkv_attention_fake(qkv, num_heads):
     return qkv.new_empty((b, t, w // 3))
 
 
+def _attention_formula(ctx, grad):
+    qkv, heads = ctx.inputs
+    return torch.ops.diffpir_tpu_torch.legacy_qkv_attention_backward(grad, qkv, heads), None
+
+
+define_op("legacy_qkv_attention_backward(Tensor grad, Tensor qkv, int num_heads) -> Tensor",
+          dict.fromkeys(("CPU", "CUDA"), legacy_qkv_attention_backward),
+          lambda grad, qkv, num_heads: torch.empty_like(qkv))
 define_op("legacy_qkv_attention(Tensor qkv, int num_heads) -> Tensor",
           {"CPU": legacy_qkv_attention_plain, "CUDA": _launch},
-          _legacy_qkv_attention_fake)
+          _legacy_qkv_attention_fake, _attention_formula, saved=(0,))

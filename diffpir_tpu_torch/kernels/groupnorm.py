@@ -18,19 +18,27 @@ and fp32 (n, mean, M2); the caller gathers the shards' and
 ``merge_partial_stats`` joins them in rank order into (mean, rstd);
 ``groupnorm_apply_stats`` normalises from those.  Each has a plain version.
 
-``groupnorm_silu`` runs the plain version for a CPU tensor and the CUDA kernel
-for a CUDA tensor; it never falls back from one to the other.  Where a
-gradient is asked for (grad mode on and an input that requires one), the
-CUDA launch runs inside ``GroupNormSiLUFunction``, whose backward is in
-PyTorch operations (the TPU kernel has no backward kernel to port).
+Each entry runs the plain version for a CPU tensor and the CUDA kernel for a
+CUDA tensor; it never falls back from one to the other.  Where a gradient is
+asked for (grad mode on and an input that requires one), the launch (on the
+CPU the plain version) runs inside an ``autograd.Function`` (``GroupNormSiLUFunction``,
+``PartialStatsFunction``, ``ApplyStatsFunction``) whose backward recomputes
+the plain version and differentiates it (the TPU kernel has no backward
+kernel to port, and the kernels stay forward-only).
 
-The same function is the operator ``torch.ops.diffpir_tpu_torch.groupnorm_silu``
-(``_common.define_op``): its CPU implementation is the plain version,
-its CUDA implementation ``_launch``, and its fake implementation gives the
-output's shape and type.  Inside a ``torch.export`` trace the wrapper emits
-the operator, so an exported program holds one opaque node per call (and no
-plain-version subgraph); an eager call keeps the direct path, without the
-operator's dispatch.
+Each entry is also an operator, ``torch.ops.diffpir_tpu_torch.groupnorm_silu``,
+``::groupnorm_partial_stats`` and ``::groupnorm_apply_stats``
+(``_common.define_op``): the CPU implementation is the plain version, the
+CUDA one the launch, a fake one gives the output's shape and type.  Each
+has an autograd formula that calls its backward operator
+(``::groupnorm_silu_backward`` and so on: the same recompute, on both
+keys), so a ``make_fx`` record of a gradient holds one forward and one
+backward node per call.  ``merge_partial_stats``, the host-side join
+between the halves, is the operator ``::groupnorm_merge_stats``.  While a
+program is recorded (a ``torch.export`` trace, ``_common.operators()``)
+the wrappers emit the operators, so an exported program holds one opaque
+node per call and no plain-version subgraph; an eager call keeps the
+direct path, without the operator's dispatch.
 """
 
 from __future__ import annotations
@@ -45,13 +53,16 @@ from diffpir_tpu_torch.kernels import LAUNCHES
 from diffpir_tpu_torch.kernels._common import (check_aligned,
                                                check_cuda_tensor,
                                                current_stream_handle, define_op,
-                                               raise_on_error, wants_grad)
+                                               emit_operators, raise_on_error,
+                                               recompute_grads, wants_grad)
 
 __all__ = ["groupnorm_silu", "groupnorm_silu_plain", "GroupNormSiLUFunction",
-           "partition_pixels", "thread_layout", "check_inputs",
-           "groupnorm_partial_stats", "groupnorm_partial_stats_plain",
-           "groupnorm_apply_stats", "groupnorm_apply_stats_plain",
-           "merge_partial_stats"]
+           "groupnorm_silu_backward", "partition_pixels", "thread_layout",
+           "check_inputs", "groupnorm_partial_stats", "groupnorm_partial_stats_plain",
+           "PartialStatsFunction", "groupnorm_apply_stats", "groupnorm_apply_stats_plain",
+           "ApplyStatsFunction", "merge_partial_stats"]
+
+_OPS = torch.ops.diffpir_tpu_torch
 
 MAX_GROUPS = 64           # csrc/groupnorm.cu kMaxGroups
 MAX_THREADS = 1024        # threads per block
@@ -197,36 +208,41 @@ def _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
     return out
 
 
-class GroupNormSiLUFunction(torch.autograd.Function):
-    """The kernel's forward with a gradient.
+def groupnorm_silu_backward(grad, x, scale, bias, film_scale, film_shift, num_groups,
+                            eps, do_silu, needs) -> list:
+    """The gradients of ``groupnorm_silu`` for the inputs (x, scale, bias,
+    film_scale, film_shift) whose ``needs`` is set (an empty tensor for the
+    others): the plain version recomputed and differentiated, so the
+    gradient is by construction the plain version's, which the kernel
+    matches in the forward.  The backward of both the Function and the
+    operator."""
+    return recompute_grads(
+        lambda *t: groupnorm_silu_plain(*t, num_groups=num_groups, eps=eps,
+                                        do_silu=do_silu),
+        grad, (x, scale, bias, film_scale, film_shift), needs)
 
-    The backward recomputes the plain version under ``torch.enable_grad``
-    and differentiates it with ``torch.autograd.grad``.  Recomputing, not a
-    closed form: the gradient is then by construction the plain version's,
-    which the kernel matches in the forward, and it costs one plain forward
-    per backward on the only path that asks for one (DPS_y0).  It returns
-    gradients for x, scale, bias and the FiLM pair where
-    ``ctx.needs_input_grad`` asks.
-    """
+
+def _some(grads, needs) -> tuple:
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+class GroupNormSiLUFunction(torch.autograd.Function):
+    """The kernel's forward with a gradient (``groupnorm_silu_backward``):
+    one plain forward per backward, on the paths that ask for one (DPS_y0,
+    training, classifier guidance)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
         ctx.save_for_backward(x, scale, bias, film_scale, film_shift)
         ctx.args = (num_groups, eps, do_silu)
-        return _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
+        return (_launch if x.is_cuda else _plain_call)(x, scale, bias, film_scale,
+                                                      film_shift, num_groups, eps, do_silu)
 
     @staticmethod
     def backward(ctx, grad_out):
-        num_groups, eps, do_silu = ctx.args
         needs = ctx.needs_input_grad[:5]
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, needs)]
-        wanted = [t for t, need in zip(inputs, needs) if need]
-        with torch.enable_grad():
-            y = groupnorm_silu_plain(*inputs, num_groups=num_groups, eps=eps,
-                                     do_silu=do_silu)
-            grads = iter(torch.autograd.grad(y, wanted, grad_out))
-        return tuple(next(grads) if need else None for need in needs) + (None,) * 3
+        grads = groupnorm_silu_backward(grad_out, *ctx.saved_tensors, *ctx.args, needs)
+        return _some(grads, needs) + (None,) * 3
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -238,31 +254,49 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
     scale, bias: (C,) fp32; film_scale, film_shift: optional (B, C) fp32.
     """
-    if torch.compiler.is_exporting():
-        return torch.ops.diffpir_tpu_torch.groupnorm_silu(
-            x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
-    if x.device.type == "cpu":
-        return groupnorm_silu_plain(x, scale, bias, film_scale, film_shift,
-                                    num_groups=num_groups, eps=eps,
-                                    do_silu=do_silu)
-    if x.device.type != "cuda":
+    if emit_operators():
+        return _OPS.groupnorm_silu(x, scale, bias, film_scale, film_shift, num_groups,
+                                   eps, do_silu)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     if wants_grad(x, scale, bias, film_scale, film_shift):
         return GroupNormSiLUFunction.apply(x, scale, bias, film_scale, film_shift,
                                            num_groups, eps, do_silu)
-    return _launch(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu)
+    return (_launch if x.is_cuda else _plain_call)(x, scale, bias, film_scale, film_shift,
+                                                  num_groups, eps, do_silu)
+
+
+def _plain_call(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
+    return groupnorm_silu_plain(x, scale, bias, film_scale, film_shift,
+                                num_groups=num_groups, eps=eps, do_silu=do_silu)
 
 
 def _groupnorm_silu_fake(x, scale, bias, film_scale, film_shift, num_groups, eps, do_silu):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+def _grads_fake(grad, tensors, needs) -> list:
+    return [torch.empty_like(t) if t is not None and n else grad.new_empty(0)
+            for t, n in zip(tensors, needs)]
+
+
+def _gn_formula(ctx, grad):
+    x, scale, bias, fs, fb, g, eps, silu = ctx.inputs
+    needs = list(ctx.needs_input_grad[:5])
+    grads = _OPS.groupnorm_silu_backward(grad, x, scale, bias, fs, fb, g, eps, silu, needs)
+    return _some(grads, needs) + (None,) * 3
+
+
+define_op("groupnorm_silu_backward(Tensor grad, Tensor x, Tensor scale, Tensor bias, "
+          "Tensor? film_scale, Tensor? film_shift, int num_groups, float eps, "
+          "bool do_silu, bool[] needs) -> Tensor[]",
+          dict.fromkeys(("CPU", "CUDA"), groupnorm_silu_backward),
+          lambda grad, x, s, b, fs, fb, g, eps, silu, needs: _grads_fake(
+              grad, (x, s, b, fs, fb), needs))
 define_op("groupnorm_silu(Tensor x, Tensor scale, Tensor bias, Tensor? film_scale, "
           "Tensor? film_shift, int num_groups, float eps, bool do_silu) -> Tensor",
-          {"CPU": lambda x, scale, bias, fs, fb, g, eps, silu: groupnorm_silu_plain(
-              x, scale, bias, fs, fb, num_groups=g, eps=eps, do_silu=silu),
-           "CUDA": _launch},
-          _groupnorm_silu_fake)
+          {"CPU": _plain_call, "CUDA": _launch},
+          _groupnorm_silu_fake, _gn_formula, saved=(0, 1, 2, 3, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +329,16 @@ def merge_partial_stats(parts: torch.Tensor, is_bf16: bool,
     """(R, B, G, 3) partial statistics of R shards -> (B, G, 2) (mean, rstd),
     joined in shard order: bf16 by sums, fp32 by Chan's formula, as the
     kernel's last block joins its slices.  No atomics: reruns are
-    bit-identical, and one shard gives the unsharded plain version's values."""
+    bit-identical, and one shard gives the unsharded plain version's values.
+    Host-side PyTorch operations on both devices; in a recorded program the
+    operator ``groupnorm_merge_stats`` (its ``rsqrt`` is no plain GroupNorm)."""
+    if emit_operators():
+        return _OPS.groupnorm_merge_stats(parts, is_bf16, eps)
+    return _merge_plain(parts, is_bf16, eps)
+
+
+def _merge_plain(parts: torch.Tensor, is_bf16: bool, eps: float = 1e-5) -> torch.Tensor:
+    """``merge_partial_stats`` in PyTorch operations."""
     if is_bf16:
         s1, s2, n = parts[0].unbind(-1)
         for p in parts[1:]:
@@ -340,21 +383,8 @@ def groupnorm_apply_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torc
     return y.to(dtype)
 
 
-def _no_grad_through(name: str, *tensors) -> None:
-    if wants_grad(*tensors):
-        raise NotImplementedError(
-            f"{name}: no gradient through the sharded GroupNorm (spatial "
-            "parallelism runs inference only)")
-
-
-def groupnorm_partial_stats(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
-    """x: (B, H, W, C) -> (B, G, 3) fp32 partial statistics
-    (``groupnorm_partial_stats_plain``); one kernel launch on the card."""
-    if x.device.type == "cpu":
-        return groupnorm_partial_stats_plain(x, num_groups)
-    if x.device.type != "cuda":
-        raise ValueError(f"groupnorm_partial_stats: unsupported device {x.device}")
-    _no_grad_through("groupnorm_partial_stats", x)
+def _launch_partial(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """One launch of the partial-statistics kernel; counted in LAUNCHES."""
     _, _, rows = _check_x(x, num_groups)
 
     from diffpir_tpu_torch.kernels.build import load_library
@@ -375,20 +405,8 @@ def groupnorm_partial_stats(x: torch.Tensor, num_groups: int = 32) -> torch.Tens
     return out
 
 
-def groupnorm_apply_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                          stats: torch.Tensor,
-                          film_scale: Optional[torch.Tensor] = None,
-                          film_shift: Optional[torch.Tensor] = None, *,
-                          do_silu: bool = True) -> torch.Tensor:
-    """x normalised with (B, G, 2) fp32 (mean, rstd), then the affine step,
-    optional FiLM and SiLU (``groupnorm_apply_stats_plain``); one kernel
-    launch on the card."""
-    if x.device.type == "cpu":
-        return groupnorm_apply_stats_plain(x, scale, bias, stats, film_scale, film_shift,
-                                           do_silu=do_silu)
-    if x.device.type != "cuda":
-        raise ValueError(f"groupnorm_apply_stats: unsupported device {x.device}")
-    _no_grad_through("groupnorm_apply_stats", x, scale, bias, film_scale, film_shift)
+def _launch_apply(x, scale, bias, stats, film_scale, film_shift, do_silu):
+    """One launch of the apply kernel; counted in LAUNCHES."""
     g = stats.shape[1]
     _, _, rows = check_inputs(x, scale, bias, film_scale, film_shift, num_groups=g)
     check_cuda_tensor("stats", stats, x.device, (torch.float32,), (x.shape[0], g, 2))
@@ -407,3 +425,146 @@ def groupnorm_apply_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     raise_on_error("groupnorm_apply_stats", rc)
     LAUNCHES["groupnorm_apply_stats"] += 1
     return out
+
+
+def partial_stats_backward(grad, x, num_groups):
+    """The gradient of ``groupnorm_partial_stats`` for x (plain recompute)."""
+    return recompute_grads(groupnorm_partial_stats_plain, grad, (x,), (True,),
+                           num_groups)[0]
+
+
+def apply_stats_backward(grad, x, scale, bias, stats, film_scale, film_shift, do_silu,
+                         needs) -> list:
+    """The gradients of ``groupnorm_apply_stats`` for the inputs (x, scale,
+    bias, stats, film_scale, film_shift) whose ``needs`` is set (plain
+    recompute): the stats' gradient carries the other rows' share of x's."""
+    return recompute_grads(
+        lambda *t: groupnorm_apply_stats_plain(*t, do_silu=do_silu),
+        grad, (x, scale, bias, stats, film_scale, film_shift), needs)
+
+
+def merge_stats_backward(grad, parts, is_bf16, eps):
+    return recompute_grads(_merge_plain, grad, (parts,), (True,), is_bf16, eps)[0]
+
+
+class PartialStatsFunction(torch.autograd.Function):
+    """The partial-statistics kernel with a gradient for x."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups):
+        ctx.save_for_backward(x)
+        ctx.num_groups = num_groups
+        return (_launch_partial if x.is_cuda else groupnorm_partial_stats_plain)(
+            x, num_groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return partial_stats_backward(grad, x, ctx.num_groups), None
+
+
+class ApplyStatsFunction(torch.autograd.Function):
+    """The apply kernel with gradients for its tensors."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, stats, film_scale, film_shift, do_silu):
+        ctx.save_for_backward(x, scale, bias, stats, film_scale, film_shift)
+        ctx.do_silu = do_silu
+        return (_launch_apply if x.is_cuda else _apply_plain_call)(
+            x, scale, bias, stats, film_scale, film_shift, do_silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[:6]
+        grads = apply_stats_backward(grad, *ctx.saved_tensors, ctx.do_silu, needs)
+        return _some(grads, needs) + (None,)
+
+
+def groupnorm_partial_stats(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """x: (B, H, W, C) -> (B, G, 3) fp32 partial statistics
+    (``groupnorm_partial_stats_plain``); one kernel launch on the card."""
+    if emit_operators():
+        return _OPS.groupnorm_partial_stats(x, num_groups)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"groupnorm_partial_stats: unsupported device {x.device}")
+    if wants_grad(x):
+        return PartialStatsFunction.apply(x, num_groups)
+    return (_launch_partial if x.is_cuda else groupnorm_partial_stats_plain)(
+        x, num_groups)
+
+
+def groupnorm_apply_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          stats: torch.Tensor,
+                          film_scale: Optional[torch.Tensor] = None,
+                          film_shift: Optional[torch.Tensor] = None, *,
+                          do_silu: bool = True) -> torch.Tensor:
+    """x normalised with (B, G, 2) fp32 (mean, rstd), then the affine step,
+    optional FiLM and SiLU (``groupnorm_apply_stats_plain``); one kernel
+    launch on the card."""
+    if emit_operators():
+        return _OPS.groupnorm_apply_stats(x, scale, bias, stats, film_scale, film_shift,
+                                          do_silu)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"groupnorm_apply_stats: unsupported device {x.device}")
+    if wants_grad(x, scale, bias, stats, film_scale, film_shift):
+        return ApplyStatsFunction.apply(x, scale, bias, stats, film_scale, film_shift,
+                                        do_silu)
+    return (_launch_apply if x.is_cuda else _apply_plain_call)(
+        x, scale, bias, stats, film_scale, film_shift, do_silu)
+
+
+def _apply_plain_call(x, scale, bias, stats, film_scale, film_shift, do_silu):
+    return groupnorm_apply_stats_plain(x, scale, bias, stats, film_scale, film_shift,
+                                       do_silu=do_silu)
+
+
+def _partial_formula(ctx, grad):
+    x, g = ctx.inputs
+    return _OPS.groupnorm_partial_stats_backward(grad, x, g), None
+
+
+def _apply_formula(ctx, grad):
+    x, scale, bias, stats, fs, fb, silu = ctx.inputs
+    needs = list(ctx.needs_input_grad[:6])
+    grads = _OPS.groupnorm_apply_stats_backward(grad, x, scale, bias, stats, fs, fb,
+                                                silu, needs)
+    return _some(grads, needs) + (None,)
+
+
+def _merge_formula(ctx, grad):
+    parts, is_bf16, eps = ctx.inputs
+    return _OPS.groupnorm_merge_stats_backward(grad, parts, is_bf16, eps), None, None
+
+
+def _partial_fake(x, num_groups):
+    return x.new_empty((x.shape[0], num_groups, 3), dtype=torch.float32)
+
+
+def _merge_fake(parts, is_bf16, eps):
+    return parts.new_empty(tuple(parts.shape[1:3]) + (2,))
+
+
+define_op("groupnorm_partial_stats_backward(Tensor grad, Tensor x, int num_groups) "
+          "-> Tensor", dict.fromkeys(("CPU", "CUDA"), partial_stats_backward),
+          lambda grad, x, g: torch.empty_like(x))
+define_op("groupnorm_partial_stats(Tensor x, int num_groups) -> Tensor",
+          {"CPU": groupnorm_partial_stats_plain, "CUDA": _launch_partial},
+          _partial_fake, _partial_formula, saved=(0,))
+define_op("groupnorm_apply_stats_backward(Tensor grad, Tensor x, Tensor scale, "
+          "Tensor bias, Tensor stats, Tensor? film_scale, Tensor? film_shift, "
+          "bool do_silu, bool[] needs) -> Tensor[]",
+          dict.fromkeys(("CPU", "CUDA"), apply_stats_backward),
+          lambda grad, x, s, b, st, fs, fb, silu, needs: _grads_fake(
+              grad, (x, s, b, st, fs, fb), needs))
+define_op("groupnorm_apply_stats(Tensor x, Tensor scale, Tensor bias, Tensor stats, "
+          "Tensor? film_scale, Tensor? film_shift, bool do_silu) -> Tensor",
+          {"CPU": _apply_plain_call, "CUDA": _launch_apply},
+          lambda x, s, b, st, fs, fb, silu: torch.empty_like(
+              x, memory_format=torch.contiguous_format),
+          _apply_formula, saved=(0, 1, 2, 3, 4, 5))
+define_op("groupnorm_merge_stats_backward(Tensor grad, Tensor parts, bool is_bf16, "
+          "float eps) -> Tensor", dict.fromkeys(("CPU", "CUDA"), merge_stats_backward),
+          lambda grad, parts, is_bf16, eps: torch.empty_like(parts))
+define_op("groupnorm_merge_stats(Tensor parts, bool is_bf16, float eps) -> Tensor",
+          dict.fromkeys(("CPU", "CUDA"), _merge_plain), _merge_fake, _merge_formula,
+          saved=(0,))

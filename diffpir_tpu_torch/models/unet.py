@@ -32,7 +32,12 @@ all-reduces ``proj``.  Spatial parallelism (``space`` axis, ``UNet.set_mesh``):
 the UNet keeps its rank's rows of the image height; every 3x3 convolution
 first fetches its halo rows; GroupNorm merges its statistics over the axis;
 attention gathers the tokens, runs on all of them and keeps its rows; the
-output rows are gathered at the end.  Resampling stays local.
+output rows are gathered at the end.  Resampling stays local.  The row
+slices are ``axis_block`` and every collective carries a gradient
+(``parallel/collectives.py``), so DPS_y0 differentiates through a sharded
+UNet; a replicated activation entering a layer that splits its output (a
+column-parallel conv, the heads' qkv, the sharded GroupNorm's merged
+statistics) goes through ``grad_all_reduce``.
 
 Activations are (B, H, W, C) tensors, contiguous in that order, which is what
 the GroupNorm and attention kernels take.  A convolution hands cuDNN the
@@ -115,6 +120,9 @@ class GroupNorm32(nn.Module):
                        else _gn.groupnorm_partial_stats_plain)(x, self.num_groups)
             parts = _coll.all_gather(partial[None], self.space, "space")
             stats = _gn.merge_partial_stats(parts, x.dtype == torch.bfloat16)
+            # every rank holds the merged statistics whole, and each rank's
+            # rows add their share to the statistics' gradient
+            stats = _coll.grad_all_reduce(stats, self.space, "space")
             apply = _gn.groupnorm_apply_stats if cuda else _gn.groupnorm_apply_stats_plain
             return apply(x, self.weight, self.bias, stats, fs, fb, do_silu=self.fuse_silu)
         fn = groupnorm_silu if cuda else groupnorm_silu_plain
@@ -244,6 +252,10 @@ class ResBlock(nn.Module):
             h, x = _upsample2x(h), _upsample2x(x)
         elif self.down:
             h, x = _avgpool2x(h), _avgpool2x(x)
+        if self.tp is not None:
+            # a column-parallel conv: each rank's channels add their share to
+            # the replicated input's gradient
+            h = _coll.grad_all_reduce(h, *self.tp)
         h = self.conv1(h)
         emb_out = self._film(emb, h.dtype)
         if self.use_scale_shift_norm:
@@ -277,6 +289,8 @@ class AttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
         h = self.norm(x).reshape(b, hh * ww, c)
+        if self.tp is not None:
+            h = _coll.grad_all_reduce(h, *self.tp)   # heads split: column-parallel
         qkv = self.qkv(h).contiguous()
         heads = self.num_heads
         if self.tp is not None:
@@ -289,8 +303,7 @@ class AttentionBlock(nn.Module):
                 else legacy_qkv_attention_plain)
         a = attn(qkv, heads)
         if self.space is not None:
-            r = self.space.axis_index("space")
-            a = a[:, r * hh * ww:(r + 1) * hh * ww].contiguous()
+            a = _coll.axis_block(a, self.space, "space", dim=1).contiguous()
         a = self.proj(a) if self.tp is None else _row_parallel(self.proj, a, *self.tp)
         return x + a.reshape(b, hh, ww, c)
 
@@ -457,7 +470,7 @@ class UNet(nn.Module):
         if y is not None:
             emb = emb + self.label_emb(y).to(self.dtype)
         if self.space is not None:
-            n, r = self.space.axis_size("space"), self.space.axis_index("space")
+            n = self.space.axis_size("space")
             depth = 2 ** (len(self.cfg.channel_mult) - 1)
             height = x.shape[1]
             if height % (n * depth):
@@ -465,8 +478,7 @@ class UNet(nn.Module):
                     f"image height {height} over {n} space ranks: each rank's "
                     f"{height / n:g} rows must stay even down all "
                     f"{len(self.cfg.channel_mult)} levels (a multiple of {depth})")
-            rows = height // n
-            x = x[:, r * rows:(r + 1) * rows]
+            x = _coll.axis_block(x, self.space, "space", dim=1)
         h = x.to(self.dtype)
         hs = []
         for names in self._inputs:

@@ -31,8 +31,10 @@ rows, so a sharded trajectory sees the unsharded one's noise.
 ``lower_restore`` traces a restore on the ``meta`` device and reports this
 rank's parameter bytes, activation peaks and collectives; ``dryrun_restore``
 runs the JAX package's mesh dry run, its mesh-bundle stage included.
-``prox_state``/``prox_from_state`` and ``initial_x`` are the pieces of a
-restore that ``export.py`` traces into a bundle's programs.
+``prox_state``/``prox_from_state``, ``initial_x`` and ``wrap_test_mode``
+are the pieces of a restore that ``export.py`` traces into a bundle's
+programs.  DPS_y0 differentiates through the UNet under every mesh: the
+collectives of the ``model`` and ``space`` axes carry gradients.
 """
 
 from __future__ import annotations
@@ -221,26 +223,19 @@ class Runner:
 
                 shard_unet_params(self.model, self.mesh)
             self.model.set_mesh(self.mesh)
-            if (cfg.generate_mode == "DPS_y0" and cfg.model_output_type != "pred_x_prev"
-                    and (self.mesh.axis_size("model") > 1
-                         or self.mesh.axis_size("space") > 1)):
-                raise NotImplementedError(
-                    "DPS_y0 differentiates through the UNet, and the collectives of "
-                    "the model and space axes carry no gradient; run DPS_y0 under "
-                    "data parallelism only")
-        self.den = make_denoiser(self._test_mode_model(), self.schedule,
+        self.den = make_denoiser(self.wrap_test_mode(self.model), self.schedule,
                                  compute_dtype=self.dtype)
         self.diffusion = Diffusion(self.schedule, ModelMeanType.EPSILON,
                                    ModelVarType.LEARNED_RANGE)
 
-    def _test_mode_model(self):
-        """The UNet, wrapped in the reference's evaluation modes when
-        ``test_mode`` asks (``diffpir_tpu/runner.py:184-201``): every call
-        of a wrapped model runs at the first sample's timestep."""
-        model = self.model
+    def wrap_test_mode(self, model):
+        """``model`` (the UNet, or a call of it on other parameters),
+        wrapped in the reference's evaluation modes when ``test_mode`` asks
+        (``diffpir_tpu/runner.py:184-201``): every call of a wrapped model
+        runs at the first sample's timestep."""
         if not self.cfg.test_mode:
             return model
-        mcfg = model.cfg
+        mcfg = self.model.cfg
         depth_mod = 2 ** (len(mcfg.channel_mult) - 1)
 
         def wrapped(x, t):

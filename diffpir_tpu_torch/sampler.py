@@ -40,7 +40,7 @@ from diffpir_tpu_torch.schedule import NoiseSchedule, TrajectoryPlan
 __all__ = ["Denoiser", "make_denoiser", "model_fn", "denoise_x0", "denoise_output",
            "make_inpaint_prox", "make_fft_prox", "make_cubic_sr_prox", "init_x",
            "generator_noise", "per_sample", "StepTables", "step_tables", "diffpir_step",
-           "diffpir_sample", "xprev_sample"]
+           "diffpir_sample", "xprev_tables", "xprev_step", "xprev_sample"]
 
 NoiseFn = Callable[[int, int, str, tuple], torch.Tensor]
 
@@ -359,6 +359,42 @@ def diffpir_sample(den: Denoiser, prox_fn: Optional[Callable],
     return x01, frames
 
 
+XPREV_COLUMNS = ("rho",)
+XPREV_FLAGS = ("prox",)
+
+
+def xprev_tables(plan: TrajectoryPlan) -> StepTables:
+    """One row per step of ``xprev_sample`` (every step of the plan): rho
+    (``XPREV_COLUMNS``) and whether the masked average follows the step
+    (``XPREV_FLAGS``: ``plan.prox``, never at the last step)."""
+    n = plan.n_steps
+    return StepTables(
+        coef=np.asarray(plan.rho, np.float32).reshape(n, 1),
+        flags=np.asarray([bool(plan.prox[i]) and i < n - 1 for i in range(n)],
+                         bool).reshape(n, 1),
+        t=np.asarray(plan.t, np.int32), step=np.arange(n, dtype=np.int32),
+        repeat=np.zeros(n, np.int32))
+
+
+def xprev_step(diffusion, model: Callable, x: torch.Tensor, coef: torch.Tensor,
+               flags: torch.Tensor, t: torch.Tensor, draw: torch.Tensor, *,
+               ddim: bool, y2: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None,
+               lam_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step of ``xprev_sample`` from a row of ``xprev_tables``: the
+    ancestral (or DDIM) step at the 0-d timestep ``t`` with its draw, then,
+    where ``mask`` is given and the row's flag holds, the masked average
+    with tau = rho (times ``lam_b``); every per-step value a tensor, so one
+    traced program serves every step (``export.py``)."""
+    step = diffusion.ddim_sample if ddim else diffusion.p_sample
+    x = step(model, x, t.expand(x.shape[0]), draw)["sample"]
+    if mask is not None:
+        (rho,) = coef.unbind(0)
+        tau = rho if lam_b is None else rho * lam_b
+        x = torch.where(flags[0], (mask * y2 + tau * x) / (mask + tau), x)
+    return x
+
+
 def xprev_sample(diffusion, model: Callable, plan: TrajectoryPlan,
                  x_init: torch.Tensor, *, noise: NoiseFn, ddim: bool = False,
                  y: Optional[torch.Tensor] = None,
@@ -369,24 +405,25 @@ def xprev_sample(diffusion, model: Callable, plan: TrajectoryPlan,
     Each step takes one ancestral (or DDIM) step of the base chain at t_i
     (``main_ddpir.py:365-366, 414-419``); for inpainting the masked-average
     prox is then applied to the sampled x on rows where ``plan.prox`` holds,
-    except the last.  There is no DiffPIR renoise, and the final step's
-    model call is used.  Deblur and SR pass ``mask=None``: the reference
-    applies no data term in this mode.  Build the plan with
-    ``rho_mode='xprev'``.  ``model`` is ``model_fn(den)``.
+    except the last (``xprev_step``, one row of ``xprev_tables`` each).
+    There is no DiffPIR renoise, and the final step's model call is used.
+    Deblur and SR pass ``mask=None``: the reference applies no data term in
+    this mode.  Build the plan with ``rho_mode='xprev'``.  ``model`` is
+    ``model_fn(den)``.
     """
     y2 = None if y is None else (2.0 * y - 1.0).float()
     lam_b = per_sample(lam_scale, x_init)
-    n = plan.n_steps
-    step = diffusion.ddim_sample if ddim else diffusion.p_sample
+    dev = x_init.device
+    tables = xprev_tables(plan)
+    coef = torch.from_numpy(tables.coef).to(dev)
+    flags = torch.from_numpy(tables.flags).to(dev)
+    ts = torch.from_numpy(tables.t).to(dev)
     x = x_init.float()
     with torch.no_grad():
-        for i in range(n):
-            t_vec = torch.full((x.shape[0],), int(plan.t[i]), dtype=torch.int32,
-                               device=x.device)
-            x = step(model, x, t_vec, noise(i, 0, "xprev", tuple(x.shape)))["sample"]
-            if mask is not None and plan.prox[i] and i < n - 1:
-                tau = float(plan.rho[i]) if lam_b is None else float(plan.rho[i]) * lam_b
-                x = (mask * y2 + tau * x) / (mask + tau)
+        for i in range(plan.n_steps):
+            x = xprev_step(diffusion, model, x, coef[i], flags[i], ts[i],
+                           noise(i, 0, "xprev", tuple(x.shape)), ddim=ddim, y2=y2,
+                           mask=mask, lam_b=lam_b)
     if recover_known and mask is not None:
         x = mask * y2 + (1.0 - mask) * x
     return x * 0.5 + 0.5

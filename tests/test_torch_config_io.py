@@ -242,11 +242,12 @@ def test_prepare_images_bit_for_bit(overrides):
 
 
 def test_prepare_images_refuses_unported_tasks():
-    """What the port still refuses for deblurring: DPS_y0's gradient through
-    a UNet sharded over model or space.  DIY motion PSFs (Pillow-rasterised
-    in the JAX package, numpy here) go through the data path and the Runner,
-    as do the first-order prox of sub_1_analytic=false (guidance), save_LEH
-    and a mesh_shape (none in one process, as JAX on one device)."""
+    """Nothing the port refuses for deblurring any more: DPS_y0 under a
+    model axis builds (its gradient runs through the sharded UNet's
+    collectives).  DIY motion PSFs (Pillow-rasterised in the JAX package,
+    numpy here) go through the data path and the Runner, as do the
+    first-order prox of sub_1_analytic=false (guidance), save_LEH and a
+    mesh_shape (none in one process, as JAX on one device)."""
     path = os.path.join(ROOT, "configs", "demo64_deblur.yaml")
     cfg = tconfig.load_config(path, dict(use_DIY_kernel=True, blur_mode="motion",
                                          cwd=ROOT))
@@ -258,9 +259,9 @@ def test_prepare_images_refuses_unported_tasks():
         assert abs(float(k.sum()) - 1.0) < 1e-5 and (k >= 0).all()
     from diffpir_tpu_torch.runner import Runner
 
-    with pytest.raises(NotImplementedError, match="DPS_y0"):
-        Runner(tconfig.load_config(path, dict(mesh_shape=[1, 2], generate_mode="DPS_y0",
-                                              cwd=ROOT)), abstract_params=True)
+    dps = Runner(tconfig.load_config(path, dict(mesh_shape=[1, 2], generate_mode="DPS_y0",
+                                                cwd=ROOT)), abstract_params=True)
+    assert dps.mesh.shape == {"data": 1, "model": 2}
     assert Runner(tconfig.load_config(path, dict(mesh_shape=[1], cwd=ROOT)),
                   device="cpu").mesh is None
     for over in (dict(sub_1_analytic=False), dict(save_LEH=True),

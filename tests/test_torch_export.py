@@ -1,7 +1,8 @@
 """The port's export (``diffpir_tpu_torch/export.py``): the cases of
 ``tests/test_export.py`` on the port's bundles, the manifest against the JAX
 package's ``save_bundle`` for the same config, the kernels as operators in
-the exported graph, and the refused modes.
+the exported graph.  The other modes' bundles are in
+``tests/test_torch_export_modes.py``.
 
 A port bundle runs the same aten operations as ``Runner.restore_batch`` in
 the same order, with the same draws, so on the CPU it equals the live
@@ -21,8 +22,7 @@ import torch
 
 from diffpir_tpu_torch.config import load_config
 from diffpir_tpu_torch.data import Batch
-from diffpir_tpu_torch.export import (REFUSED, export_restore, load_bundle, program_report,
-                                      save_bundle)
+from diffpir_tpu_torch.export import export_restore, load_bundle, program_report, save_bundle
 from diffpir_tpu_torch.kernels import build
 from diffpir_tpu_torch.kernels.attention import legacy_qkv_attention_plain
 from diffpir_tpu_torch.kernels.groupnorm import groupnorm_silu_plain
@@ -274,21 +274,22 @@ def test_loading_imports_no_model_sampler_or_runner(bundles):
     assert "program_load_s" in proc.stdout
 
 
-@pytest.mark.parametrize("over", [
-    dict(model_output_type="pred_x_prev"), dict(generate_mode="DPS_y0"),
-    dict(generate_mode="DPS_yt"), dict(test_mode=2)])
-def test_unported_modes_are_refused(over):
-    runner = Runner(_cfg("deblur", **over), device="cpu")
-    with pytest.raises(NotImplementedError, match=REFUSED):
-        export_restore(runner, batch=B, height=H, width=H, allow_random_weights=True)
+def test_bundle_calls_open_data_stack_chunks_of_their_own(bundles):
+    """A loaded program's forward and the restore loop each have a frame
+    larger than one of the interpreter's 16 KiB data-stack chunks, so each
+    call opens a chunk of its own with room for the calls it makes: no
+    caller's depth puts them at a chunk's end, where every call they make
+    would map and unmap a chunk (ROADMAP C6)."""
+    from diffpir_tpu_torch.export import LoadedRestore
 
-
-def test_space_axis_bundles_are_refused():
-    runner = Runner(_cfg("inpaint", mesh_shape=[2, 2], mesh_axes=["data", "space"]),
-                    abstract_params=True)
-    with pytest.raises(NotImplementedError, match=REFUSED):
-        export_restore(runner, batch=B, height=H, width=H, allow_random_weights=True)
-    assert REFUSED == "ROADMAP.md queue A item 14"
+    loaded = bundles["inpaint"][3]
+    loaded.programs  # binds the programs
+    fns = [type(p.gm).forward for p in loaded._programs.values()] + [LoadedRestore.__call__]
+    for fn in fns:
+        code = fn.__code__
+        slots = (len(code.co_varnames) + len(code.co_cellvars) + len(code.co_freevars)
+                 + code.co_stacksize)
+        assert slots * 8 > 16 * 1024, fn
 
 
 def test_entry_points_refuse_to_run_without_a_card(bundles, monkeypatch, tmp_path):

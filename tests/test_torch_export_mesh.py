@@ -1,8 +1,11 @@
 """Mesh bundles of the port on four gloo ranks on the CPU (one group for the
-module, two threads a rank; what the ranks run is
+module, one thread a rank; what the ranks run is
 ``tests/test_torch_parallel_ranks.py::export_suite4``): a (4,) data bundle,
 a (2, 2) data x model bundle (its programs hold the model axis's
-collectives as operators) and a dynamic-point (4,) data bundle, each loaded
+collectives as operators), a dynamic-point (4,) data bundle, a (2, 2) data
+x space bundle (the halves of the sharded GroupNorm, the halo rows and the
+row blocks as operators) and a DPS_y0 deblur bundle over (2, 2) data x
+model (its recorded gradient runs through the collectives), each loaded
 and run on the group against the unsharded runner (the dry run's
 mesh-bundle stage, ``dryrun_restore(4, bundle=True)``, runs in
 ``test_torch_parallel.py``'s group, which already ran the dry run).  Bar: 5e-4 (``runner.DRYRUN_ATOL``; see
@@ -25,7 +28,8 @@ def group(tmp_path_factory):
     return res, work
 
 
-@pytest.mark.parametrize("name", ["data", "dataxmodel", "data_dynamic"])
+@pytest.mark.parametrize("name", ["data", "dataxmodel", "data_dynamic", "dataxspace",
+                                  "dps_dataxmodel"])
 def test_mesh_bundle_matches_unsharded(group, name):
     res = group[0]
     assert res[f"{name} shape"] == [4, 32, 32, 3]
@@ -52,6 +56,23 @@ def test_model_axis_program_holds_the_collectives(group):
     rep = program_report(step)
     assert rep["groupnorm_silu"] == 45 and rep["legacy_qkv_attention"] == 4
     assert rep["plain_nodes"] == 0 and rep["collectives"] > 0
+
+
+def test_space_and_dps_programs_hold_their_operators(group):
+    """The space bundle's step: the GroupNorm halves and merge at every
+    GroupNorm call, the collectives, no groupnorm_silu and no plain node;
+    the DPS_y0 model-axis bundle's: one backward node per kernel node."""
+    res = group[0]
+    space = res["dataxspace report"]
+    assert (space["groupnorm_partial_stats"] == space["groupnorm_apply_stats"]
+            == space["groupnorm_merge_stats"] == 45)
+    assert space["groupnorm_silu"] == 0 and space["legacy_qkv_attention"] == 4
+    assert space["collectives"] > 0 and space["plain_nodes"] == 0
+    assert res["dataxspace mesh"]["axis_names"] == ["data", "space"]
+    dps = res["dps_dataxmodel report"]
+    assert dps["groupnorm_silu"] == dps["groupnorm_silu_backward"] == 45
+    assert dps["legacy_qkv_attention"] == dps["legacy_qkv_attention_backward"] == 4
+    assert dps["plain_nodes"] == 0 and dps["collectives"] > 0
 
 
 def test_mesh_bundle_refuses_a_smaller_group(group):

@@ -225,9 +225,15 @@ def test_functions_are_entered_only_when_a_gradient_is_asked_for():
     assert wants_grad(None, x.clone().requires_grad_())
     with torch.no_grad():
         assert not wants_grad(x.clone().requires_grad_())
-    # on a CPU tensor the wrappers run the plain versions, which autograd
-    # differentiates without any Function
+    # on a CPU tensor the wrappers run the plain versions: inside the
+    # Function where a gradient is asked for (its backward is the one an
+    # exported program's operator records), bare otherwise
     xg = torch.randn((1, 4, 4, 32), requires_grad=True)
     y = kgn.groupnorm_silu(xg, torch.ones(32), torch.zeros(32))
-    assert y.grad_fn is not None
-    assert "GroupNormSiLUFunction" not in type(y.grad_fn).__name__
+    assert "GroupNormSiLUFunction" in type(y.grad_fn).__name__
+    torch.testing.assert_close(y, kgn.groupnorm_silu_plain(xg, torch.ones(32),
+                                                           torch.zeros(32)), rtol=0, atol=0)
+    with torch.no_grad():
+        assert kgn.groupnorm_silu(xg, torch.ones(32), torch.zeros(32)).grad_fn is None
+    q = torch.randn((1, 16, 3 * 2 * 8), requires_grad=True)
+    assert "LegacyQKVAttentionFunction" in type(kat.legacy_qkv_attention(q, 2).grad_fn).__name__

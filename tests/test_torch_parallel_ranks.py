@@ -173,31 +173,144 @@ def suite8(workdir: str) -> dict:
 
 def export_suite4(workdir: str) -> dict:
     """The 4-rank group of ``test_torch_export_mesh.py``: mesh bundles of the
-    tiny inpaint restore under (4,) data, (2, 2) data x model and a
-    dynamic-point (4,) data mesh, each loaded and run on the group against
-    the unsharded runner (rank 0 runs that).  The bundles stay under
-    ``workdir``.  (The dry run's mesh-bundle stage runs in ``suite4``.)"""
-    from diffpir_tpu_torch.export import load_bundle, save_bundle
+    tiny inpaint restore under (4,) data, (2, 2) data x model, a
+    dynamic-point (4,) data mesh and (2, 2) data x space, and of the tiny
+    DPS_y0 deblur restore under (2, 2) data x model, each loaded and run on
+    the group against the unsharded runner (rank 0 runs that).  The bundles
+    stay under ``workdir``.  (The dry run's mesh-bundle stage runs in
+    ``suite4``.)"""
+    from diffpir_tpu_torch.export import load_bundle, program_report, save_bundle
 
     res: dict = {}
-    batch = _dryrun_batch(np.random.default_rng(2), 4, 32, "inpaint")
+    batches = {task: _dryrun_batch(np.random.default_rng(2), 4, 32, task)
+               for task in ("inpaint", "deblur")}
     refs = {}
     if _is_root():
         ref_runner = Runner(_cfg("inpaint", "tiny_test"), device="cpu", use_mesh=False)
-        refs[False] = ref_runner.restore_batch(batch, seed=5)
-        refs[True] = ref_runner.restore_batch(batch, lambda_=9.0, seed=5)
-    for name, shape, axes, dynamic in (("data", (4,), ("data",), False),
-                                       ("dataxmodel", (2, 2), ("data", "model"), False),
-                                       ("data_dynamic", (4,), ("data",), True)):
-        runner = Runner(_cfg("inpaint", "tiny_test", list(shape), list(axes)), device="cpu")
+        refs["inpaint", False] = ref_runner.restore_batch(batches["inpaint"], seed=5)
+        refs["inpaint", True] = ref_runner.restore_batch(batches["inpaint"], lambda_=9.0,
+                                                         seed=5)
+        refs["deblur", False] = Runner(
+            _cfg("deblur", "tiny_test", generate_mode="DPS_y0"), device="cpu",
+            use_mesh=False).restore_batch(batches["deblur"], seed=5)
+    for name, task, shape, axes, dynamic, over in (
+            ("data", "inpaint", (4,), ("data",), False, {}),
+            ("dataxmodel", "inpaint", (2, 2), ("data", "model"), False, {}),
+            ("data_dynamic", "inpaint", (4,), ("data",), True, {}),
+            ("dataxspace", "inpaint", (2, 2), ("data", "space"), False, {}),
+            ("dps_dataxmodel", "deblur", (2, 2), ("data", "model"), False,
+             dict(generate_mode="DPS_y0"))):
+        batch = batches[task]
+        runner = Runner(_cfg(task, "tiny_test", list(shape), list(axes), **over),
+                        device="cpu")
         path = save_bundle(runner, os.path.join(workdir, name), batch=4, height=32,
-                           width=32, dynamic_point=dynamic, platforms=("cpu",),
+                           width=32, kernel_hw=tuple(batch.kernel.shape[1:]),
+                           dynamic_point=dynamic, platforms=("cpu",),
                            allow_random_weights=True)
         loaded = load_bundle(path, device="cpu")
-        got = loaded(batch.img_L, mask=batch.mask, seed=5,
+        got = loaded(batch.img_L, kernel=batch.kernel, mask=batch.mask, seed=5,
                      **({"lambda_": 9.0} if dynamic else {}))
         if _is_root():
-            res[name] = float(np.abs(got - refs[dynamic]).max())
+            res[name] = float(np.abs(got - refs[task, dynamic]).max())
             res[f"{name} mesh"] = loaded.manifest["mesh"]
             res[f"{name} shape"] = list(got.shape)
+            res[f"{name} report"] = program_report(loaded.programs["step"])
+    return res
+
+def _grad(loss_fn, x):
+    xv = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad(loss_fn(xv), xv)
+    return g
+
+
+def collective_grads() -> dict:
+    """The gradient of a scalar through each collective over a 2-rank axis
+    against the same scalar's unsharded gradient (``grad_suite2``): every
+    rank computes the scalar alike, so a replicated input gets the whole
+    gradient and a rank's block its block's."""
+    from diffpir_tpu_torch.models.unet import Conv
+    from diffpir_tpu_torch.parallel import collectives as coll
+
+    mesh = make_mesh((2,), ("space",))
+    r = mesh.axis_index("space")
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 8, 6, 4), generator=g)          # the whole tensor
+    w = torch.randn((2, 2, 8, 6, 4), generator=g)       # one weight a rank
+    blk = slice(4 * r, 4 * r + 4)
+    res = {}
+    # axis_block (replicated -> block) then the all-reduce of the partial sums
+    got = _grad(lambda v: coll.all_reduce_sum(
+        (w[0, :, blk] * coll.axis_block(v, mesh, "space", dim=1)).sum(), mesh, "space"), x)
+    res["axis_block+all_reduce_sum"] = float((got - w[0]).abs().max())
+    # all_gather (block -> replicated), the scalar computed alike everywhere
+    got = _grad(lambda v: (w[0] * coll.all_gather(v, mesh, "space", dim=1)).sum(),
+                x[:, blk])
+    res["all_gather"] = float((got - w[0][:, blk]).abs().max())
+    # grad_all_reduce: a replicated input whose uses differ per rank
+    got = _grad(lambda v: coll.all_reduce_sum(
+        (w[r] * coll.grad_all_reduce(v, mesh, "space")).sum(), mesh, "space"), x)
+    res["grad_all_reduce"] = float((got - w.sum(0)).abs().max())
+    # halo_rows, through a 3x3 convolution of the split rows
+    conv = Conv(4, 5)
+    torch.nn.init.normal_(conv.weight, generator=g)
+    gy = torch.randn((2, 8, 6, 5), generator=g)
+    ref = _grad(lambda v: (gy * conv(v)).sum(), x)
+    conv.space = mesh
+    got = _grad(lambda v: coll.all_reduce_sum((gy[:, blk] * conv(v)).sum(), mesh, "space"),
+                x[:, blk])
+    res["halo_rows"] = float((got - ref[:, blk]).abs().max())
+    return res
+
+
+def unet_grads() -> dict:
+    """d||1.7 x - 0.9 eps(x)|| / dx through the tiny_demo32 UNet sharded
+    under model = 2 and under space = 2 against the unsharded gradient."""
+    gen = np.random.default_rng(3)
+    x = torch.from_numpy(gen.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    t = torch.tensor([999, 300])
+
+    def grad(mesh):
+        model = UNet(TINY_TEST_CONFIG)
+        model.load_state_dict(flax_to_torch(load_params_npz(TINY32)))
+        model.requires_grad_(False)
+        if mesh is not None:
+            shard_unet_params(model, mesh)
+            model.set_mesh(mesh)
+        return _grad(lambda v: (1.7 * v - 0.9 * model(v, t)[..., :3]).square().sum().sqrt(), x)
+
+    ref = grad(None)
+    res = {"scale": float(ref.abs().max())}
+    for axis in ("model", "space"):
+        res[axis] = float((grad(make_mesh((2,), (axis,))) - ref).abs().max())
+    return res
+
+
+def grad_suite2(workdir: str) -> dict:
+    """The 2-rank group of ``test_torch_mesh_grad.py``: gradients through
+    each collective and through the sharded UNet, then DPS_y0 deblur
+    restores under model = 2 and space = 2 against the unsharded restore
+    (rank 0 runs that), and the space one's bundle."""
+    from diffpir_tpu_torch.export import load_bundle, program_report, save_bundle
+
+    res = {"collectives": collective_grads(), "unet": unet_grads()}
+    for task in ("deblur",):
+        batch = _dryrun_batch(np.random.default_rng(4), 2, 32, task)
+        over = dict(generate_mode="DPS_y0")
+        ref = Runner(_cfg(task, "tiny_test", **over), device="cpu",
+                     use_mesh=False).restore_batch(batch, seed=3)
+        for axis in ("model", "space"):
+            runner = Runner(_cfg(task, "tiny_test", [2], [axis], **over), device="cpu")
+            out = runner.restore_batch(batch, seed=3)
+            res[f"dps {task} {axis}"] = float(np.abs(out - ref).max())
+            res[f"dps {task} shape"] = list(out.shape)
+            if task == "deblur" and axis == "space":
+                # the DPS_y0 bundle over the space axis: its step program
+                # records the gradient through the collectives and halves
+                path = save_bundle(runner, os.path.join(workdir, "dps_space"), batch=2,
+                                   height=32, width=32, kernel_hw=(7, 7),
+                                   platforms=("cpu",), allow_random_weights=True)
+                loaded = load_bundle(path, device="cpu")
+                got = loaded(batch.img_L, kernel=batch.kernel, seed=3)
+                res["dps bundle space"] = float(np.abs(got - ref).max())
+                res["dps bundle space report"] = program_report(loaded.programs["step"])
     return res

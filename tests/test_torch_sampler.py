@@ -119,7 +119,7 @@ def test_runner_restore_matches_jax_runner():
 
 def test_runner_refuses_unported_paths():
     """What the Runner still refuses: a restore without weights (an abstract
-    Runner lowers only), and DPS_y0 under a model or space axis; the device
+    Runner lowers only); DPS_y0 under a model or space axis, the device
     mesh, the trajectory modes, test_mode, save_LEH, LPIPS and FID it used to
     refuse now build."""
     path = os.path.join(ROOT, "configs", "demo32_inpaint.yaml")
@@ -128,10 +128,11 @@ def test_runner_refuses_unported_paths():
     with pytest.raises(RuntimeError, match="abstract_params"):
         abstract.restore_batch(None)
     deblur = os.path.join(ROOT, "configs", "demo64_deblur.yaml")
-    with pytest.raises(NotImplementedError, match="DPS_y0"):
-        trunner.Runner(tconfig.load_config(deblur, dict(mesh_shape=[1, 2],
-                                                        generate_mode="DPS_y0")),
-                       abstract_params=True)
+    for axes in (["data", "model"], ["data", "space"]):
+        dps = trunner.Runner(tconfig.load_config(deblur, dict(
+            mesh_shape=[1, 2], mesh_axes=axes, generate_mode="DPS_y0")),
+            abstract_params=True)
+        assert dps.mesh.shape == dict(zip(axes, [1, 2]))
     for over in (dict(calc_LPIPS=True), dict(calc_FID=True),
                  dict(generate_mode="repaint"), dict(iter_num_U=2),
                  dict(model_output_type="pred_x_prev"), dict(log_process=True),

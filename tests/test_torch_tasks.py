@@ -175,17 +175,18 @@ def test_cli_deblur_sweep_is_one_point_at_7_lambda_3_zeta():
 
 
 def test_unported_options_are_refused():
-    """What the deblur and SR paths still refuse: DPS_y0 under a mesh with
-    a model or space axis (no gradient through those collectives).  The
-    device mesh, the DIY motion PSF, LPIPS, FID, the first-order prox
-    (sub_1_analytic=false), the DPS modes and attention heads wider than 256
-    channels (no longer a limit of the CUDA kernel) build."""
+    """Nothing the deblur and SR paths refuse any more: DPS_y0 under a mesh
+    with a model or space axis builds (its gradient runs through those
+    axes' collectives), and so do the device mesh, the DIY motion PSF,
+    LPIPS, FID, the first-order prox (sub_1_analytic=false), the DPS modes
+    and attention heads wider than 256 channels (no longer a limit of the
+    CUDA kernel)."""
     for path in (DEBLUR, SISR):
         for axes in (("data", "model"), ("data", "space")):
             _, tcfg = _configs(path, mesh_shape=[1, 2], mesh_axes=list(axes),
                                generate_mode="DPS_y0")
-            with pytest.raises(NotImplementedError, match="DPS_y0"):
-                trunner.Runner(tcfg, abstract_params=True)
+            assert trunner.Runner(tcfg, abstract_params=True).mesh.shape == dict(
+                zip(axes, (1, 2)))
         _, tcfg = _configs(path, mesh_shape=[1, 2], generate_mode="DPS_yt")
         assert trunner.Runner(tcfg, abstract_params=True).mesh.shape == {"data": 1,
                                                                           "model": 2}
