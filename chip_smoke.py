@@ -21,7 +21,9 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              seeded random weights: bench.py's workload) and
              256x256_diffusion_uncond (553M, batch 1, 256 px: attention at
              T = 1024 with 8 heads of 64 and at T = 256 and 64 with 16 heads,
-             GroupNorm up to C = 2048), and the train step's DEMO256 at batch
+             GroupNorm up to C = 2048) and the same model under num_heads 4,
+             num_head_channels -1 (UNCOND_4HEADS: heads of 128 and 256
+             channels, batch 1 and 8), and the train step's DEMO256 at batch
              16, and guided-diffusion's 256x256 classifier (batch 8, bf16,
              its out_norm fp32; the spatial_v2 head's (8, 1, 1, 2048)
              GroupNorm in both types); every head width of the generic
@@ -30,7 +32,9 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              bf16, more (batch, head) pairs than a grid's y holds
              (PAIRS_CASE), and the sharded GroupNorm's two launches
              (partial statistics, apply) at a space rank's shards of DEMO256
-             (bf16) and demo64 (fp32).  Each case is run twice and
+             (bf16) and demo64 (fp32).  Each attention line names the
+             variant that ran (kernels/attention.py attention_plan: tuned,
+             bf16_any, f32_any or f32_wide, its rows and slices).  Each case is run twice and
              must repeat bit for bit; the fp32 high-mean, low-variance GroupNorm input is held
              to the plain version at 1e-3.  Kernel, plain and library-call
              times in two columns: "device", 20 calls captured in a CUDA
@@ -87,7 +91,10 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              seeded random weights of 256x256_diffusion_uncond (553M) in
              guided-diffusion's layout, converted, run one bf16 forward
              through the kernels within FLAGSHIP_FORWARD_REL_TOL of the
-             plain versions; and the CLI's --profile on tiny_demo32 (4 NFE)
+             plain versions, and again under UNCOND_4HEADS (the same
+             weights: 101 GroupNorm and 16 attention launches, every one on
+             attn_bf16_any; its attention per forward at batch 1 and 8 from
+             phase kernels); and the CLI's --profile on tiny_demo32 (4 NFE)
              writes a trace that names both kernels (into
              .kernel_build/profile/, deleted after).  Prints latency p50/p95
              (/stats), images per second and ms per NFE of the coalesced
@@ -206,6 +213,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -386,6 +394,14 @@ ODD_WIDTH_CASES = ((2, 100, 3, 1), (2, 100, 3, 7), (2, 65, 2, 255))
 # at ds32 (T = 64); and more than 65535 (batch, head) pairs at a short T
 WIDE_CASES = ((4, 256, 2, 320), (4, 256, 1, 512), (2, 64, 2, 1024))
 PAIRS_CASE = (33000, 4, 2, 32)
+# 256x256_diffusion_uncond under num_heads 4 and num_head_channels -1
+# (guided-diffusion's default, its LSUN checkpoints' setting): the same
+# parameters, each attention layer in 4 heads of C / 4 channels, so 5 calls
+# at (B, 1024, 4 x 128), 5 at (B, 256, 4 x 256) and 6 at (B, 64, 4 x 256)
+# a forward, all on attn_bf16_any in bf16
+UNCOND_4HEADS = dict(num_heads=4, num_head_channels=-1)
+UNCOND_4HEADS_ATTN = 16
+UNCOND_GROUPNORMS = 101
 # Phase parallel.  Ranks that share the one card run over gloo, a collective
 # going through host memory (gloo's own transport aborts on a CUDA tensor
 # with this torch); so these runs show correctness and memory per rank, not
@@ -724,12 +740,18 @@ def attn_case(b, t, heads, ch, dtype_name, gen):
     out, ref, again = kern(), plain(), kern()
     torch.cuda.synchronize()
     err, ok = max_violation(out, ref, **TOL[("legacy_qkv_attention", dtype_name)])
+    # the variant that ran (a checkout from before attention_plan: "-")
+    plan = (kat.attention_plan(b, t, heads, ch, dtype_name == "bfloat16",
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+            if hasattr(kat, "attention_plan") else None)
+    variant = "-" if plan is None else (f"{plan.variant} rows={plan.rows} "
+                                        f"slice={plan.slice_ch}x{plan.slices}")
     lib_err = float((library().permute(0, 2, 1, 3).reshape(b, t, heads * ch).float()
                      - ref.float()).abs().max())
     nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
     flops = 4 * b * heads * t * t * ch
     return dict(err=err, ok=ok, repeats=torch.equal(out, again), bytes=nbytes,
-                flops=flops, dtype=dtype_name, library_err=lib_err,
+                flops=flops, dtype=dtype_name, library_err=lib_err, variant=variant,
                 **time_all(kernel=kern, plain=plain, library=library))
 
 
@@ -913,6 +935,7 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
     from diffpir_tpu_torch.config import load_config
     from diffpir_tpu_torch.data import make_batches, prepare_images
     from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.kernels import attention as kat
     from diffpir_tpu_torch.main import main as cli_main
     from diffpir_tpu_torch.models import convert, zoo
     from diffpir_tpu_torch.models.unet import UNet
@@ -1145,7 +1168,6 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
             torch.cuda.synchronize()
             fwd[route + "_launches"] = dict(LAUNCHES)
             del m
-        del port_sd
         torch.cuda.empty_cache()
         rel = float((fwd["cuda"] - fwd["plain"]).abs().max() / fwd["plain"].abs().max())
         n553 = per_fwd[("uncond553m b1", "gn")]["calls"], per_fwd[("uncond553m b1",
@@ -1159,6 +1181,50 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
         if not rel <= FLAGSHIP_FORWARD_REL_TOL:
             raise AssertionError(f"553M forward differs by {rel} (relative)")
         out["uncond553m_forward_rel"] = rel
+
+        # the same weights under num_heads 4, num_head_channels -1: heads of
+        # 128 and 256 channels, every attention call on attn_bf16_any
+        h4cfg = dataclasses.replace(ucfg, **UNCOND_4HEADS)
+        fwd4 = {}
+        for route in ("cuda", "plain"):
+            m = UNet(h4cfg, dtype=torch.bfloat16, kernels=route)
+            m.load_state_dict(port_sd)
+            m = m.to(dev).eval()
+            LAUNCHES.clear()
+            kat.VARIANT_LAUNCHES.clear()
+            with torch.no_grad():
+                fwd4[route] = m(x1, t[:1]).float()
+            torch.cuda.synchronize()
+            fwd4[route + "_launches"] = dict(LAUNCHES)
+            fwd4[route + "_variants"] = dict(kat.VARIANT_LAUNCHES)
+            del m
+        rel4 = float((fwd4["cuda"] - fwd4["plain"]).abs().max() / fwd4["plain"].abs().max())
+        want4 = {"groupnorm_silu": UNCOND_GROUPNORMS, "legacy_qkv_attention": UNCOND_4HEADS_ATTN}
+        recorded4 = {"groupnorm_silu": per_fwd[("uncond553m 4 heads b1", "gn")]["calls"],
+                     "legacy_qkv_attention": per_fwd[("uncond553m 4 heads b1", "attn")]["calls"]}
+        if recorded4 != want4:
+            raise AssertionError(f"the four-head 553M forward records {recorded4} calls, "
+                                 f"expected {want4}")
+        per4 = {b_: per_fwd[(f"uncond553m 4 heads b{b_}", "attn")] for b_ in (1, 8)}
+        log(f"serve: 256x256_diffusion_uncond with num_heads 4, num_head_channels -1, same "
+            f"weights, bf16 b1: max |kernel - plain| / max |plain| = {rel4:.3e}; launches "
+            f"{fwd4['cuda_launches']}, attention by variant {fwd4['cuda_variants']} (plain "
+            f"{fwd4['plain_launches']}); attention per forward (phase kernels, device ms): "
+            + "; ".join(f"b{b_} kernel {p['ms']:.4f} plain {p['plain_ms']:.4f} SDPA "
+                        f"{p['library_ms']:.4f} bound {p['bound_ms']:.4f} ({p['bound_by']})"
+                        for b_, p in per4.items()))
+        if (fwd4["cuda_launches"] != want4 or fwd4["plain_launches"]
+                or fwd4["cuda_variants"] != {"bf16_any": UNCOND_4HEADS_ATTN}):
+            raise AssertionError(f"four-head 553M launches {fwd4['cuda_launches']} "
+                                 f"{fwd4['cuda_variants']}, expected {want4} on bf16_any")
+        if not rel4 <= FLAGSHIP_FORWARD_REL_TOL:
+            raise AssertionError(f"four-head 553M forward differs by {rel4} (relative)")
+        out["uncond553m_4heads_forward_rel"] = rel4
+        out["uncond553m_4heads_variants"] = fwd4["cuda_variants"]
+        out["uncond553m_4heads_attention_per_forward"] = {
+            f"b{b_}": {k: p[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                        "calls")} for b_, p in per4.items()}
+        del port_sd
 
         # --profile: a Chrome trace of a 4-NFE tiny_demo32 run holds both kernels
         prof_dir = os.path.join(REPO, ".kernel_build", "profile")
@@ -2929,6 +2995,7 @@ def run(argv: list[str]) -> int:
         import diffpir_tpu_torch.train.datasets  # noqa: F401
         import diffpir_tpu_torch.train.demo  # noqa: F401
         from diffpir_tpu_torch.kernels import LAUNCHES, build
+        from diffpir_tpu_torch.kernels import attention as kat
 
         bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
         if bad:
@@ -3017,6 +3084,15 @@ def run(argv: list[str]) -> int:
         calls553 = record_kernel_calls(
             uncond, torch.randn((1, 256, 256, 3), generator=gen, device=dev), t_probe[:1])
         del uncond
+        uncond4 = zoo.init_random_(UNet(dataclasses.replace(
+            zoo.MODEL_ZOO_CONFIGS["256x256_diffusion_uncond"], **UNCOND_4HEADS),
+            dtype=torch.bfloat16, kernels="plain"), 0).to(dev).eval()
+        calls553h4 = record_kernel_calls(
+            uncond4, torch.randn((1, 256, 256, 3), generator=gen, device=dev), t_probe[:1])
+        calls553h4b8 = record_kernel_calls(
+            uncond4, torch.randn((8, 256, 256, 3), generator=gen, device=dev),
+            t_probe.repeat(2))
+        del uncond4
         clf = zoo.init_random_(EncoderUNet(UNetConfig(**CLASSIFIER_256), pool="attention",
                                            dtype=torch.bfloat16, kernels="plain"),
                                0).to(dev).eval()
@@ -3027,14 +3103,16 @@ def run(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         paths = (("demo32", calls32), ("demo64", calls64), ("demo256", calls256),
                  ("ffhq b16", callsffhq), ("uncond553m b1", calls553),
-                 ("demo256 b16", calls256b16), ("classifier b8", callsclf))
+                 ("demo256 b16", calls256b16), ("classifier b8", callsclf),
+                 ("uncond553m 4 heads b1", calls553h4), ("uncond553m 4 heads b8", calls553h4b8))
         for name, calls in paths:
             log(f"{name}: {sum(c[0] == 'gn' for c in calls)} GroupNorm and "
                 f"{sum(c[0] == 'attn' for c in calls)} attention calls per forward")
 
         gn_keys, attn_keys = set(), set()
         for calls, dtypes in ((calls32 + calls64 + calls256, ("float32", "bfloat16")),
-                              (callsffhq + calls553 + calls256b16, ("bfloat16",))):
+                              (callsffhq + calls553 + calls256b16 + calls553h4 + calls553h4b8,
+                               ("bfloat16",))):
             for c in calls:
                 for dt in dtypes:
                     if c[0] == "gn":
@@ -3074,7 +3152,8 @@ def run(argv: list[str]) -> int:
         for key in sorted(attn_keys):
             r = results[("attn",) + key] = attn_case(*key, gen)
             log(f"legacy_qkv_attention B={key[0]} T={key[1]} heads={key[2]} ch={key[3]} "
-                f"{key[4]}: max_abs_err={r['err']:.3e} repeats={r['repeats']} "
+                f"{key[4]} variant={r['variant']}: max_abs_err={r['err']:.3e} "
+                f"repeats={r['repeats']} "
                 f"{columns(r)} (library err {r['library_err']:.2e}) "
                 f"bound_ms={bound(r)[0]:.4e}"
                 + ("" if r["ok"] and r["repeats"] else "  FAIL"))
@@ -3180,18 +3259,20 @@ def run(argv: list[str]) -> int:
         forwards = n_batches * forwards_per_batch(cfg)
         count_function_entries()
         LAUNCHES.clear()
+        kat.VARIANT_LAUNCHES.clear()
         FN_CALLS.clear()
         t0 = time.perf_counter()
         res = cli_main(argv)[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         main_launches = dict(LAUNCHES)
+        main_variants = dict(kat.VARIANT_LAUNCHES)
         if FN_CALLS:
             raise AssertionError(f"the DiffPIR path entered autograd.Functions: "
                                  f"{dict(FN_CALLS)}")
         log(f"main path: PSNR {res['psnr']:.4f} dB (JAX CPU {JAX_DEMO64_PSNR:.4f}), "
-            f"SSIM {res['ssim']:.4f}, {wall:.3f}s, launches {main_launches}, "
-            f"{forwards} UNet forwards")
+            f"SSIM {res['ssim']:.4f}, {wall:.3f}s, launches {main_launches} (attention "
+            f"by variant {main_variants}), {forwards} UNet forwards")
         want = {"groupnorm_silu": 44 * forwards, "legacy_qkv_attention": 1 * forwards}
         if main_launches != want:
             raise AssertionError(f"launches {main_launches}, expected {want}")
@@ -3514,6 +3595,8 @@ def run(argv: list[str]) -> int:
             "flagship_per_forward": per_fwd[("demo256", kind)],
             "ffhq_b16_per_forward": per_fwd[("ffhq b16", kind)],
             "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)],
+            "uncond553m_4heads_b1_per_forward": per_fwd[("uncond553m 4 heads b1", kind)],
+            "uncond553m_4heads_b8_per_forward": per_fwd[("uncond553m 4 heads b8", kind)],
             "train_demo256_b16_per_forward": per_fwd[("demo256 b16", kind)],
             "classifier_b8_per_forward": per_fwd[("classifier b8", kind)]})
         if kind == "gn":
@@ -3521,6 +3604,9 @@ def run(argv: list[str]) -> int:
                 parallel_out["runs"][0]["launches_rank0"].get(name, 0)
         else:
             record["kernels"][-1]["wide_heads_and_pairs"] = wide
+            record["kernels"][-1]["launches_by_variant"] = {
+                "main demo64_inpaint": main_variants,
+                "serve uncond553m 4 heads b1 forward": serve_out["uncond553m_4heads_variants"]}
             paths = record["kernels"][-1]["launches_per_path"]
             paths["parallel demo256 sp=2 rank 0"] = parallel_out["sp_launches"].get(name, 0)
             paths["parallel demo256 space=2 bundle rank 0"] = \

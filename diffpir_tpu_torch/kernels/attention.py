@@ -2,14 +2,17 @@
 
 Port of the TPU kernel ``diffpir_tpu/pallas/attention.py::legacy_qkv_attention``
 (defined at ``:47``, ``pl.pallas_call`` at ``:62``, body ``_attn_kernel`` at
-``:32-43``) to the CUDA kernel
-in ``csrc/attention.cu`` (bf16 on tensor cores, fp32 on CUDA cores; tuned
-kernels for head widths 16, 32 and 64, kernels taking every other width up
-to 256, and one taking any wider head through shared memory in chunks, with
-its logits in a workspace this wrapper allocates).  Any number of
-(batch, head) pairs is taken.  qkv is
-(B, T, 3*C) with channel layout [head][q|k|v][ch]; q and k are both scaled by
-ch^-1/4; logits and softmax are fp32; the output is (B, T, C).
+``:32-43``) to the CUDA kernels in ``csrc/attention.cu``.  qkv is (B, T, 3*C)
+with channel layout [head][q|k|v][ch]; q and k are both scaled by ch^-1/4;
+logits and softmax are fp32; the output is (B, T, C).  Any head width and any
+number of (batch, head) pairs is taken.
+
+``attention_plan`` is the one place that decides how a call runs: its
+variant (``attention_variant``: "tuned" at widths 16, 32 and 64; "bf16_any",
+wgmma fed by TMA, for every other bf16 width and head count; "f32_any" for
+fp32 widths up to 256; "f32_wide" beyond, and past 65535 heads in fp32), the
+query rows of a block and the output slices.  The C entry receives it.
+``VARIANT_LAUNCHES`` counts the launches by variant.
 
 ``legacy_qkv_attention`` runs the plain version for a CPU tensor and the CUDA
 kernel for a CUDA tensor; it never falls back from one to the other.  Where a
@@ -29,6 +32,8 @@ call keeps the direct path.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import math
 import sys
@@ -44,20 +49,106 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
 
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
            "LegacyQKVAttentionFunction", "legacy_qkv_attention_backward",
-           "attention_rows_per_block", "check_inputs"]
+           "attention_rows_per_block", "attention_variant", "attention_plan",
+           "AttentionPlan", "VARIANT_LAUNCHES", "check_inputs"]
 
-# head widths the kernel takes: tuned paths run 16, 32 and 64, the other
-# widths' kernels the rest up to WIDE_HEAD_CHANNELS, attn_wide every wider one
+# head widths the kernel takes: every one (attention_variant names the kernel)
 KERNEL_HEAD_CHANNELS = range(1, sys.maxsize)
-WIDE_HEAD_CHANNELS = 256
-# query tiles the kernel takes, largest first: bf16 warps own 16 rows (tiles
-# of 16, 32) or 32 rows (64, 128); fp32 warps own 8 rows, at most 256 threads
+# the tuned kernels' widths; they and attn_f32_any (fp32, widths up to
+# F32_ANY_MAX_CH) take (batch, head) pairs on grid y, so a sample may have at
+# most MAX_GRID_Y heads (more pairs run as launches over whole samples)
+TUNED_HEAD_CHANNELS = (16, 32, 64)
+F32_ANY_MAX_CH = 256
+MAX_GRID_Y = 65535
+# the sliced kernels put (pair, query tile, slice) on grid x
+MAX_GRID_X = 2**31 - 1
+# the C entry's variant numbers
+VARIANTS = {"tuned": 0, "bf16_any": 1, "f32_any": 2, "f32_wide": 3}
+# query tiles the tuned kernels take, largest first: bf16 warps own 16 rows
+# (tiles of 16, 32) or 32 rows (64, 128); fp32 warps own 8 rows, at most 256
+# threads
 ROWS_PER_BLOCK = {True: (128, 64, 32, 16), False: (64, 32, 16)}
-# attn_wide: 16 query rows per work item, each block's logits in the
-# workspace (16 * T floats), at most WIDE_BLOCKS blocks or WIDE_WS_BYTES
-WIDE_ROWS = 16
-WIDE_BLOCKS = 1056
-WIDE_WS_BYTES = 256 << 20
+# query rows per block of the other variants: attn_bf16_any takes one or two
+# warpgroups of 64 rows, two up to BF16_ANY_TWO_WG_MAX_CH channels (where
+# their Q fits in shared memory beside the ring)
+BF16_ANY_ROWS = (128, 64)
+BF16_ANY_TWO_WG_MAX_CH = 384
+VARIANT_ROWS = {"f32_any": 16, "f32_wide": 16}
+# output channels a block of attn_bf16_any keeps in registers (its
+# instantiations), and at most a block of attn_wide does (its two)
+BF16_SLICE_CHANNELS = (32, 64, 96, 128, 192, 256)
+WIDE_SLICE_CHANNELS = (256, 512)
+# launches by variant (LAUNCHES counts them all under legacy_qkv_attention);
+# callers reset it with VARIANT_LAUNCHES.clear()
+VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def attention_variant(is_bf16: bool, ch: int, heads: int) -> str:
+    """The kernel that takes a head width and a head count: "tuned" (ch 16,
+    32 or 64), else "bf16_any" in bf16, "f32_any" in fp32 up to 256
+    channels, "f32_wide" beyond; every grid-y kernel at most MAX_GRID_Y
+    heads."""
+    if ch in TUNED_HEAD_CHANNELS and heads <= MAX_GRID_Y:
+        return "tuned"
+    if is_bf16:
+        return "bf16_any"
+    if ch <= F32_ANY_MAX_CH and heads <= MAX_GRID_Y:
+        return "f32_any"
+    return "f32_wide"
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    variant: str   # attention_variant
+    rows: int      # query rows per block
+    slice_ch: int  # output channels per block
+    slices: int    # blocks per (pair, query tile)
+    blocks: int    # blocks over every launch of the call
+
+
+def attention_plan(batch: int, t: int, heads: int, ch: int, is_bf16: bool,
+                   num_sms: int = 132) -> AttentionPlan:
+    """How a call is launched.  attn_bf16_any cuts a head wider than 256
+    into ceil(ch / 256) slices, each of the smallest instantiation that
+    holds its share, and into more (down to 64 channels) while the grid
+    would leave most SMs idle; attn_wide into equal slices of up to 512
+    channels, or 256 where the grid would be small.  Raises when the sliced
+    kernels' grid would pass MAX_GRID_X."""
+    variant = attention_variant(is_bf16, ch, heads)
+    if variant == "tuned":
+        rows, slice_ch = attention_rows_per_block(batch, t, heads, is_bf16, num_sms), ch
+    elif variant == "f32_any":
+        rows, slice_ch = VARIANT_ROWS[variant], ch
+    elif variant == "f32_wide":
+        # slices of up to 512 channels (S computed once for each) where the
+        # grid still fills the card twice over, else up to 256; equal shares
+        # in multiples of 64
+        rows = VARIANT_ROWS[variant]
+        n = -(-ch // WIDE_SLICE_CHANNELS[1])
+        if batch * heads * -(-t // rows) * n * 2 < num_sms:
+            n = -(-ch // WIDE_SLICE_CHANNELS[0])
+        share = -(-ch // n)
+        slice_ch = -(-share // 64) * 64
+    else:
+        # two warpgroups share K and V where Q stays in shared memory and the
+        # grid still gives every SM a block; else one, and where the blocks
+        # would leave most SMs idle, narrower slices (S recomputed for each)
+        n = -(-ch // BF16_SLICE_CHANNELS[-1])
+        two = (ch <= BF16_ANY_TWO_WG_MAX_CH
+               and batch * heads * -(-t // BF16_ANY_ROWS[0]) * n >= num_sms)
+        rows = BF16_ANY_ROWS[0 if two else 1]
+        if not two:
+            base = batch * heads * -(-t // rows)
+            while base * 2 * n <= num_sms and 2 * n <= -(-ch // 64):
+                n *= 2
+        share = -(-ch // n)
+        slice_ch = next(w for w in BF16_SLICE_CHANNELS if w >= share)
+    slices = -(-ch // slice_ch)
+    blocks = batch * heads * -(-t // rows) * slices
+    if variant in ("bf16_any", "f32_wide") and blocks > MAX_GRID_X:
+        raise ValueError(f"legacy_qkv_attention: ({batch}, {t}, {heads} x {ch}) needs "
+                         f"{blocks} blocks, more than a grid holds ({MAX_GRID_X})")
+    return AttentionPlan(variant, rows, slice_ch, slices, blocks)
 
 
 def attention_rows_per_block(batch: int, t: int, heads: int, is_bf16: bool,
@@ -92,14 +183,6 @@ def legacy_qkv_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tenso
     return out.reshape(b, t, num_heads * ch)
 
 
-def wide_blocks(batch: int, t: int, heads: int) -> int:
-    """Blocks of attn_wide: one per (pair, 16-row query tile), at most
-    ``WIDE_BLOCKS`` and as many as ``WIDE_WS_BYTES`` of workspace hold."""
-    items = batch * heads * -(-t // WIDE_ROWS)
-    budget = max(1, WIDE_WS_BYTES // (WIDE_ROWS * t * 4))
-    return min(items, WIDE_BLOCKS, budget)
-
-
 def check_inputs(qkv: torch.Tensor, num_heads: int) -> int:
     """Raise unless the kernel takes ``qkv`` with ``num_heads`` heads
     (shape, type, contiguity, 16-byte alignment); returns the head width."""
@@ -123,18 +206,13 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     lib = load_library()
     out = torch.empty((b, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
     is_bf16 = qkv.dtype == torch.bfloat16
-    # the tuned widths' query tile (the other widths' kernels ignore it)
-    rows = attention_rows_per_block(b, t, num_heads, is_bf16, _num_sms(qkv.device.index))
-    ws, blocks = None, 0
-    if ch > WIDE_HEAD_CHANNELS or num_heads > 65535:
-        blocks = wide_blocks(b, t, num_heads)
-        ws = torch.empty(blocks * WIDE_ROWS * t, dtype=torch.float32, device=qkv.device)
+    plan = attention_plan(b, t, num_heads, ch, is_bf16, _num_sms(qkv.device.index))
     rc = lib.diffpir_legacy_qkv_attention(
-        qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch, rows, int(is_bf16),
-        None if ws is None else ws.data_ptr(), blocks,
-        current_stream_handle(qkv.device))
+        qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch, VARIANTS[plan.variant],
+        plan.rows, plan.slice_ch, int(is_bf16), current_stream_handle(qkv.device))
     raise_on_error("legacy_qkv_attention", rc)
     LAUNCHES["legacy_qkv_attention"] += 1
+    VARIANT_LAUNCHES[plan.variant] += 1
     return out
 
 

@@ -53,8 +53,8 @@ _SIGNATURES = {
     # silu, is_bf16, stream
     "diffpir_groupnorm_apply_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _P],
-    # qkv, out, B, T, heads, ch, rows, is_bf16, workspace, ws_blocks, stream
-    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # qkv, out, B, T, heads, ch, variant, rows, slice_ch, is_bf16, stream
+    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -42,39 +42,64 @@
 // merged at the end.  K/V tiles of 32 rows are staged with a cp.async double
 // buffer, padded so that the eight lanes' 16-byte reads hit distinct banks.
 //
-// Design, every other head width (1 .. 256): the TPU kernel takes any
-// ch = C / heads, and a config with num_heads set and num_head_channels -1
-// gives widths such as 96, 128 or 192.  In bf16 (attn_bf16_any) ch is
-// padded to CHP, the next multiple of 16: Q of 64 rows and K/V tiles of 32
-// keys are copied element by element (ch need not make 16-byte rows) into
-// shared memory with the padding channels zero, and the tiles go through
-// the same mma.sync path as attn_bf16 with 16 rows per warp.  In fp32
-// (attn_f32_any) a simple kernel on CUDA cores takes ch at run time: 16
-// rows per block, 8 lanes per row, Q and a 32-key K/V tile in shared memory
-// (up to 82 KB at ch 256); every product reads shared memory, so it is slow.
+// Which kernel takes a call is decided in one place, kernels/attention.py
+// attention_plan (variant, query rows, output slice), and passed to the C
+// entry: "tuned" (attn_bf16, attn_f32) at ch 16, 32 and 64; "bf16_any"
+// (attn_bf16_any) for every other bf16 width and head count; "f32_any"
+// (attn_f32_any) for fp32 widths up to 256; "f32_wide" (attn_wide) beyond,
+// and for more than 65535 heads in fp32.  The tuned kernels and
+// attn_f32_any take the (batch, head) pairs on grid y, at most 65535; more
+// pairs run as several launches over whole samples.  attn_bf16_any and
+// attn_wide put (pair, query tile, output slice) on grid x.
 //
-// Design, widths above 256 (attn_wide, both types): a num_head_channels of
-// -1 with one or two heads gives 320, 512 or 1024 channels a head, which no
-// tile of registers holds.  The head width goes through shared memory in
-// chunks of 64 channels: Q.K^T accumulates chunk by chunk, the logits of a
-// 16-row query tile go to a workspace the wrapper allocates (16 * T floats a
-// block), and P.V is written chunk by chunk.  Blocks loop over (pair, query
-// tile) items, so neither the grid nor the workspace grows with the batch.
-// The kernels above take the (batch, head) pairs on grid y, at most 65535;
-// more pairs run as several launches over whole samples.
+// Design, attn_bf16_any: a config with num_heads set and num_head_channels
+// -1 (guided-diffusion's default) gives widths such as 96, 128, 192, 256 and,
+// with one or two heads, 320 to 1024.  Bound: operations at T = 1024 (up to
+// 34 GFLOP at (8, 1024, 4 x 256)), bytes at short T.  What held the mma.sync
+// version back (2-byte synchronous copies, 32-key tiles with two barriers
+// each, one product per fragment) is gone: a warpgroup of 64 query rows runs
+// wgmma (sm_90a) on 128-byte swizzled chunks of 64 channels that TMA copies
+// (one thread asks; an mbarrier reports the bytes) two steps ahead into a
+// ring of up to 4 slots, while the previous step's wgmma group is in flight.
+// Key tiles hold 128 keys where the registers take S and P of that many
+// (slices up to 128 channels), else 64: each tile is one wgmma m64nKTk16
+// chain for S over the head width and one batch of m64n64k16 products for
+// P.V a V chunk, so the dependent chain, the barriers and the softmax passes
+// per key are half those of 64-key tiles.  Two warpgroups share the K and V
+// chunks where Q fits (widths up to 384) and the grid still fills the card,
+// halving the copies from L2 per query row.  O stays in registers (NV / 2
+// floats a thread); a head wider than 256, and a grid too small for the
+// card, is cut into output slices, S recomputed for each.  Widths that are
+// no multiple of 8 (rows off 16-byte boundaries) are copied element by
+// element into the same zero-padded chunks: a correctness path.  The first
+// product of a tile overwrites S through wgmma's scale-d (a store to an
+// accumulator in flight made ptxas serialize every wgmma).
+//
+// Design, attn_f32_any (fp32, widths 1 .. 256 but the tuned ones): a simple
+// kernel on CUDA cores that takes ch at run time: 16 rows per block, 8
+// lanes per row, Q and a 32-key K/V tile in shared memory (up to 82 KB at ch
+// 256); every product reads shared memory, so it is slow.
+//
+// Design, attn_wide (fp32, heads wider than 256): the fp32 bars rule out
+// TF32, so it runs on CUDA cores; bound: operations.  Flash attention with
+// no logits workspace: 64-key tiles of S in registers with an online
+// softmax, the head width streamed through shared memory in chunks of 64
+// channels, one a barrier, that TMA copies three chunks ahead; output slices
+// of up to 512 channels (S recomputed for each; one slice where the grid
+// still fills the card); register tiles so that each value read from shared
+// memory serves several FMAs; and two halves of a block splitting the keys
+// of each tile (merged at the end) for two warps a scheduler.
+//
+// attn_bf16_any lives in attention_bf16_any.cu (nvcc compiles the two files
+// side by side); the helpers both use in attention_common.cuh.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
+
+// attention_bf16_any.cu
+cudaError_t diffpir_attn_bf16_any(const void* qkv, void* out, int B, int T, int heads, int ch,
+                                  int rows, int slice_ch, cudaStream_t st);
 
 namespace {
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte async copy; src_bytes 0 fills the destination with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -133,17 +158,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // MT m16 tiles (16*MT query rows) per warp: each K and V fragment read from
@@ -656,325 +670,311 @@ attn_f32_any(const float* __restrict__ qkv, float* __restrict__ out, int T_, int
 }
 
 // ---------------------------------------------------------------------------
-// any other head width, bf16: tensor cores on zero-padded tiles
+// fp32, heads wider than 256 (and more than 65535 heads): CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kPadRows = 64;   // query rows per block: 4 warps of 16
-constexpr int kPadKeys = 32;   // keys per tile
+constexpr int kWideRows = 16;     // query rows per block
+constexpr int kWideKeys = 64;     // keys per tile: 32 for each half of the block
+constexpr int kWideRing = 4;      // chunk slots
+constexpr int kWideThreads = 256;
+// a slot: a Q chunk (16 rows) and a K chunk (64 rows) of 64 channels, or a
+// V chunk; each chunk two halves of 32 channels, rows of 128 bytes
+constexpr int kWideSlot = (kWideRows + kWideKeys) * 256;
 
-__host__ __forceinline__ size_t padded_smem(int chp) {
-  return (size_t)(kPadRows + 2 * kPadKeys) * (chp + 8) * sizeof(__nv_bfloat16);
+__host__ __forceinline__ size_t wide_smem() {
+  return 1024 + (size_t)kWideRing * kWideSlot + kWideKeys * kWideRows * sizeof(float) +
+         8 * kWideRing;
 }
 
-// Head width ch padded to CHP, a multiple of 16: Q of the block's 64 rows
-// and each tile of 32 keys' K and V are copied into shared memory with
-// channels ch .. CHP-1 (and keys past T) set to 0, which leaves every dot
-// product as it is.  Then as attn_bf16 with 16 rows per warp: Q fragments by
-// ldmatrix, S = Q.K^T and O += P.V by mma.sync.m16n8k16, the online softmax
-// on the fp32 fragments, the unnormalised weights rounded to bf16.
-template <int CHP>
-__global__ void __launch_bounds__(128)
-attn_bf16_any(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-              int T_, int H, int ch, float scale_log2) {
-  constexpr int LD = CHP + 8;       // padded row: 16 bytes more
-  constexpr int KS = CHP / 16;      // k-steps of Q.K^T
-  constexpr int NT = kPadKeys / 8;  // n-tiles of S
-  constexpr int NO = CHP / 8;       // n-tiles of O
-  extern __shared__ __align__(16) __nv_bfloat16 psm[];
-  __nv_bfloat16* Qs = psm;                  // [kPadRows][LD]
-  __nv_bfloat16* Ks = Qs + kPadRows * LD;   // [kPadKeys][LD]
-  __nv_bfloat16* Vs = Ks + kPadKeys * LD;   // [kPadKeys][LD]
+// Byte offset of float4 c4 (channels 4c4 .. 4c4+3) of row r in a chunk of
+// nr rows: two halves of 32 channels, each nr rows of 128 bytes whose 16-byte
+// pieces are permuted by r % 8 (the 128-byte swizzle TMA writes)
+__device__ __forceinline__ uint32_t wide_off(int r, int c4, int nr) {
+  return (uint32_t)((c4 >> 3) * nr * 128 + r * 128 + (((c4 & 7) ^ (r & 7)) << 4));
+}
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int W3 = 3 * H * ch;
-  const __nv_bfloat16* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4, lr = lane % 8, lm = lane / 8;
-  const int q0 = blockIdx.x * kPadRows;
-  // the copies move raw 16-bit words (a select between bf16 structs went
-  // through local memory)
-  const uint16_t* src16 = reinterpret_cast<const uint16_t*>(base);
-  uint16_t* Qs16 = reinterpret_cast<uint16_t*>(Qs);
-  uint16_t* Ks16 = reinterpret_cast<uint16_t*>(Ks);
-  uint16_t* Vs16 = reinterpret_cast<uint16_t*>(Vs);
+// Rows r0 .. r0+nr-1 of a matrix at src (row stride ld floats; rows at or
+// past nrows read as 0), channels c0 .. c0+63 (at or past ncols: 0), into
+// the chunk at dst, element by element (the path for ch % 4 != 0).
+__device__ __forceinline__ void f32_chunk(uint8_t* dst, const float* src, size_t ld, int r0,
+                                          int nr, int nrows, int c0, int ncols) {
+  for (int i = threadIdx.x; i < nr * 64; i += kWideThreads) {
+    const int r = i >> 6, c = i & 63, row = r0 + r, cc = c0 + c;
+    *reinterpret_cast<float*>(dst + wide_off(r, c >> 2, nr) + 4 * (c & 3)) =
+        row < nrows && cc < ncols ? src[(size_t)row * ld + cc] : 0.f;
+  }
+}
 
-  for (int i = threadIdx.x; i < kPadRows * CHP; i += blockDim.x) {
-    const int r = i / CHP, c = i % CHP, row = q0 + r;
-    Qs16[r * LD + c] = row < T_ && c < ch ? src16[(size_t)row * W3 + c] : uint16_t(0);
+// Any ch and any number of (batch, head) pairs, flash attention without a
+// workspace.  A block takes 16 query rows of one pair and a slice of sw
+// output channels (a multiple of 64, at most 64 * NV; ch / sw slices,
+// rounded up; the logits are recomputed for each).  Chunks of 64 channels
+// pass through a ring of kWideRing slots, one barrier a chunk: for each tile
+// of 64 keys the Q and K chunks of the whole head width, then the slice's V
+// chunks, copied three chunks ahead by TMA (16-row boxes of 32 channels,
+// 128-byte swizzle, an mbarrier a slot; element by element when ch % 4 !=
+// 0).  The block's two halves run an online softmax each over their 32 keys
+// of every tile (two warps a scheduler), merged at the end.  Thread (tr, tl)
+// = (t / 16, t % 16) of a half holds the logits of rows 2tr, 2tr+1 and keys
+// tl, tl + 16, summed over the K chunks with each float4 of Q and K read
+// from shared memory serving 8 FMAs, and O of the same rows and channels
+// 64v + 4tl .. +3 of V chunk v (8 NV floats); the weights pass through
+// shared memory ([key][row]) between the two.  Softmax in fp32 (row max by
+// 16-lane shuffles, exp2f).
+template <int NV>
+__global__ void __launch_bounds__(kWideThreads)
+attn_wide(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ qkv,
+          float* __restrict__ out, int T_, int H, int ch, int slices, int sw,
+          float scale_log2) {
+  extern __shared__ __align__(16) uint8_t wide_raw[];
+  const uint32_t raw = smem_u32(wide_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  uint8_t* sm = wide_raw + pad;
+  const uint32_t sb = raw + pad;
+  float* Ps = reinterpret_cast<float*>(sm + kWideRing * kWideSlot);  // [kWideKeys][kWideRows]
+  const uint32_t bars = sb + kWideRing * kWideSlot + kWideKeys * kWideRows * 4;
+  const int half = threadIdx.x / 128, t = threadIdx.x % 128, tr = t >> 4, tl = t & 15;
+  const int kb = 32 * half;  // the half's first key of a tile
+  const int qtiles = (T_ + kWideRows - 1) / kWideRows;
+  long long blk = blockIdx.x;
+  const int slice = (int)(blk % slices);
+  blk /= slices;
+  const int q0 = (int)(blk % qtiles) * kWideRows;
+  const long long bh = blk / qtiles, b = bh / H;
+  const int h = (int)(bh % H);
+  const size_t W3 = (size_t)3 * H * ch;
+  const float* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
+  const int s0 = slice * sw;
+  const int nq = (ch + 63) / 64;
+  const int nv = (min(sw, ch - s0) + 63) / 64;
+  const bool vec = ch % 4 == 0;  // rows on 16-byte boundaries: TMA
+  const int L = nq + nv;
+  const int total = ((T_ + kWideKeys - 1) / kWideKeys) * L;
+  constexpr int ahead = kWideRing - 1;
+
+  // chunk n: key tile n / L; i = n % L < nq is Q chunk i (at the slot's
+  // start) and K chunk i (after it), else the slice's V chunk i - nq
+  auto issue = [&](int n) {  // one thread, by TMA
+    const int j = n / L, i = n - j * L;
+    const uint32_t slot = sb + (uint32_t)(n % kWideRing) * kWideSlot;
+    const uint32_t bar = bars + 8 * (n % kWideRing);
+    if (i < nq) {
+      mbar_expect(bar, kWideSlot);
+      for (int hc = 0; hc < 2; ++hc) {
+        tma_chunk(slot + hc * kWideRows * 128, &tmap, bar, 64 * i + 32 * hc, 0, h, q0, (int)b);
+        for (int r = 0; r < kWideKeys; r += 16)
+          tma_chunk(slot + kWideRows * 256 + hc * kWideKeys * 128 + r * 128, &tmap, bar,
+                    64 * i + 32 * hc, 1, h, kWideKeys * j + r, (int)b);
+      }
+    } else {
+      mbar_expect(bar, kWideKeys * 256);
+      for (int hc = 0; hc < 2; ++hc)
+        for (int r = 0; r < kWideKeys; r += 16)
+          tma_chunk(slot + hc * kWideKeys * 128 + r * 128, &tmap, bar,
+                    s0 + 64 * (i - nq) + 32 * hc, 2, h, kWideKeys * j + r, (int)b);
+    }
+  };
+  auto load = [&](int n) {  // every thread, element by element
+    const int j = n / L, i = n - j * L;
+    uint8_t* slot = sm + (n % kWideRing) * kWideSlot;
+    if (i < nq) {
+      f32_chunk(slot, base, W3, q0, kWideRows, T_, 64 * i, ch);
+      f32_chunk(slot + kWideRows * 256, base + ch, W3, kWideKeys * j, kWideKeys, T_, 64 * i, ch);
+    } else {
+      f32_chunk(slot, base + 2 * ch, W3, kWideKeys * j, kWideKeys, T_, s0 + 64 * (i - nq), ch);
+    }
+  };
+  if (vec && threadIdx.x == 0) {
+    for (int i = 0; i < kWideRing; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int n = 0; n < ahead && n < total; ++n) issue(n);
+  }
+  __syncthreads();  // the mbarriers are initialised
+
+  float o[NV][2][4];  // [V chunk][row 2tr + r][channel 4tl + e]
+  float s[2][2];      // [row 2tr + r][key kb + tl + 16u]
+  float m[2], l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[v][r][e] = 0.f;
   }
 
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  // lane supplies row lane % 16, channels 8 * (lane / 16) .. of an A fragment
-  const __nv_bfloat16* qa_row = Qs + (warp * 16 + lane % 16) * LD + 8 * (lane / 16);
-  const int ntiles = (T_ + kPadKeys - 1) / kPadKeys;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kPadKeys;
-    __syncthreads();  // the last tile is consumed (and Q is stored)
-    for (int i = threadIdx.x; i < kPadKeys * CHP; i += blockDim.x) {
-      const int r = i / CHP, c = i % CHP, key = k0 + r;
-      const bool ok = key < T_ && c < ch;
-      const uint16_t* src = src16 + (size_t)(ok ? key : 0) * W3 + (ok ? c : 0);
-      Ks16[r * LD + c] = ok ? src[ch] : uint16_t(0);
-      Vs16[r * LD + c] = ok ? src[2 * ch] : uint16_t(0);
-    }
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 1
-    for (int kk = 0; kk < KS; ++kk) {  // a loop: unrolled, ptxas spilled some CHP
-      uint32_t qa[4];
-      ldmatrix_x4(qa, qa_row + 16 * kk);
+  for (int n = 0; n < total; ++n) {
+    if (vec) {
+      mbar_wait(bars + 8 * (n % kWideRing), (uint32_t)(n / kWideRing) & 1u);  // chunk n landed
+      __syncthreads();  // and every thread is done with chunk n - 1, whose slot is refilled
+      if (threadIdx.x == 0 && n + ahead < total) issue(n + ahead);
+    } else {
+      __syncthreads();  // every thread is done with chunk n - 1
+      load(n);
+      __syncthreads();
+    }
+    const int j = n / L, i = n - j * L;
+    const uint8_t* slot = sm + (n % kWideRing) * kWideSlot;
+    if (i < nq) {
+      if (i == 0) s[0][0] = s[0][1] = s[1][0] = s[1][1] = 0.f;
+      const uint8_t* kc = slot + kWideRows * 256;
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, Ks + (8 * (j + (lm >> 1)) + lr) * LD + 16 * kk + 8 * (lm & 1));
-        mma_bf16(s[j], qa, kb[0], kb[1]);
-        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+      for (int c4 = 0; c4 < 16; ++c4) {
+        float4 qv[2], kv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(slot + wide_off(2 * tr + r, c4, kWideRows));
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          kv[u] = *reinterpret_cast<const float4*>(kc + wide_off(kb + tl + 16 * u, c4, kWideKeys));
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            s[r][u] = fmaf(qv[r].x, kv[u].x, s[r][u]);
+            s[r][u] = fmaf(qv[r].y, kv[u].y, s[r][u]);
+            s[r][u] = fmaf(qv[r].z, kv[u].z, s[r][u]);
+            s[r][u] = fmaf(qv[r].w, kv[u].w, s[r][u]);
+          }
+      }
+      if (i < nq - 1) continue;
+      // the tile's logits are whole: online softmax, the weights to Ps
+      // (read from the next chunk on, after its barrier)
+      const int k0 = j * kWideKeys + kb;
+      float p[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          s[r][u] = k0 + tl + 16 * u < T_ ? s[r][u] * scale_log2 : -INFINITY;
+          mx = fmaxf(mx, s[r][u]);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off *= 2)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        // a half whose keys so far are all past T keeps m = -inf (and 0 weights)
+        const float ms = mx == -INFINITY ? 0.f : mx;
+        const float corr = exp2f(m[r] - ms);
+        m[r] = mx;
+        l[r] *= corr;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[v][r][e] *= corr;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          p[r][u] = exp2f(s[r][u] - ms);
+          l[r] += p[r][u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        *reinterpret_cast<float2*>(Ps + (kb + tl + 16 * u) * kWideRows + 2 * tr) =
+            make_float2(p[0][u], p[1][u]);
+    } else {
+      const int v = i - nq;
+      const float* pr = Ps + kb * kWideRows + 2 * tr;
+#pragma unroll
+      for (int vv = 0; vv < NV; ++vv) {
+        if (vv != v) continue;
+#pragma unroll 8
+        for (int k = 0; k < kWideKeys / 2; ++k) {
+          const float2 pk = *reinterpret_cast<const float2*>(pr + k * kWideRows);
+          const float4 x = *reinterpret_cast<const float4*>(slot + wide_off(kb + k, tl, kWideKeys));
+          o[vv][0][0] = fmaf(pk.x, x.x, o[vv][0][0]);
+          o[vv][0][1] = fmaf(pk.x, x.y, o[vv][0][1]);
+          o[vv][0][2] = fmaf(pk.x, x.z, o[vv][0][2]);
+          o[vv][0][3] = fmaf(pk.x, x.w, o[vv][0][3]);
+          o[vv][1][0] = fmaf(pk.y, x.x, o[vv][1][0]);
+          o[vv][1][1] = fmaf(pk.y, x.y, o[vv][1][1]);
+          o[vv][1][2] = fmaf(pk.y, x.z, o[vv][1][2]);
+          o[vv][1][3] = fmaf(pk.y, x.w, o[vv][1][3]);
+        }
       }
     }
-
-    if (k0 + kPadKeys > T_) {  // the ragged last tile: keys at or past T drop out
+  }
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+
+  // merge the halves: the second hands (m, l, O) to the first through the ring
+  __syncthreads();
+  float* xo = reinterpret_cast<float*>(sm);  // [8 NV][128]: O of the second half
+  float* xm = xo + 8 * NV * 128;             // [kWideRows]
+  float* xl = xm + kWideRows;                // [kWideRows]
+  if (half == 1) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xo[((v * 2 + r) * 4 + e) * 128 + t] = o[v][r][e];
+    if (tl == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xm[2 * tr + r] = m[r];
+        xl[2 * tr + r] = l[r];
+      }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the first half's keys start at 0 < T, so mn is finite
+    const float mb = xm[2 * tr + r], mn = fmaxf(m[r], mb);
+    const float ca = exp2f(m[r] - mn), cb = exp2f(mb - mn);
+    const float inv = 1.f / (l[r] * ca + xl[2 * tr + r] * cb);
+    const int row = q0 + 2 * tr + r;
+    float* orow = out + ((size_t)b * T_ + row) * ((size_t)H * ch) + (size_t)h * ch;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = s0 + 64 * v + 4 * tl;
+      if (row >= T_ || c >= ch || 64 * v >= sw) continue;
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = (o[v][r][e] * ca + xo[((v * 2 + r) * 4 + e) * 128 + t] * cb) * inv;
+      if (vec) {
+        *reinterpret_cast<float4*>(orow + c) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * t4 + (e & 1) >= T_) s[j][e] = -INFINITY;
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds a key below T, so mx0 and mx1 are finite
-    const float c0f = ex2((m0 - mx0) * scale_log2), c1f = ex2((m1 - mx1) * scale_log2);
-    const float sub0 = mx0 * scale_log2, sub1 = mx1 * scale_log2;
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0f;
-    l1 *= c1f;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= c0f;
-      o[n][1] *= c0f;
-      o[n][2] *= c1f;
-      o[n][3] *= c1f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kPadKeys / 16; ++kk) {
-      float p[2][4];
-#pragma unroll
-      for (int hlf = 0; hlf < 2; ++hlf) {
-        const int j = 2 * kk + hlf;
-        p[hlf][0] = ex2(fmaf(s[j][0], scale_log2, -sub0));
-        p[hlf][1] = ex2(fmaf(s[j][1], scale_log2, -sub0));
-        p[hlf][2] = ex2(fmaf(s[j][2], scale_log2, -sub1));
-        p[hlf][3] = ex2(fmaf(s[j][3], scale_log2, -sub1));
-        l0 += p[hlf][0] + p[hlf][1];
-        l1 += p[hlf][2] + p[hlf][3];
-      }
-      uint32_t pa[4];
-      pa[0] = pack_bf16(p[0][0], p[0][1]);
-      pa[1] = pack_bf16(p[0][2], p[0][3]);
-      pa[2] = pack_bf16(p[1][0], p[1][1]);
-      pa[3] = pack_bf16(p[1][2], p[1][3]);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vs + (16 * kk + 8 * (lm & 1) + lr) * LD + 8 * (n + (lm >> 1)));
-        mma_bf16(o[n], pa, vb[0], vb[1]);
-        mma_bf16(o[n + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-  const int ra = q0 + warp * 16 + g, C = H * ch;
-  __nv_bfloat16* oa = out + ((size_t)b * T_ + ra) * C + (size_t)h * ch + 2 * t4;
-  __nv_bfloat16* orb = oa + (size_t)8 * C;
-  const bool ok_a = ra < T_, ok_b = ra + 8 < T_;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = 8 * n + e;
-      if (c + 2 * t4 < ch) {
-        if (ok_a) oa[c] = __float2bfloat16_rn(o[n][e] * i0);
-        if (ok_b) orb[c] = __float2bfloat16_rn(o[n][2 + e] * i1);
+          if (c + e < ch) orow[c + e] = y[e];
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// head widths above 256, either type: the head width tiled through shared
-// memory, the logits of a query tile in a workspace
+// launches
 // ---------------------------------------------------------------------------
 
-constexpr int kWideRows = 16;     // query rows per work item
-constexpr int kWideKeys = 32;     // keys per tile
-constexpr int kWideCh = 64;       // channels per chunk
-constexpr int kWideLanes = 8;     // lanes per query row
-constexpr int kWideThreads = kWideRows * kWideLanes;
-
-__device__ __forceinline__ float wide_load(const float* p) { return *p; }
-__device__ __forceinline__ float wide_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void wide_store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void wide_store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-// v rounded to the input type, as the plain version casts the weights
-__device__ __forceinline__ float wide_round(float v, const float*) { return v; }
-__device__ __forceinline__ float wide_round(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Any ch, and any number of (batch, head) pairs.  A work item is 16 query
-// rows of one pair; block x takes items x, x + gridDim.x, ..., so the grid
-// has no limit on pairs, and its workspace ws + x * 16 * T holds the item's
-// logits.  Pass 1: for each tile of 32 keys, S = Q.K^T accumulates over
-// chunks of 64 channels staged in shared memory (8 lanes per row, keys
-// lane, lane + 8, ...) and goes to the workspace in the log2 domain.  Then
-// each row's softmax in fp32 (max and sum by 8-lane shuffles), the weights
-// rounded to the input type as the plain version rounds them.  Pass 2: for
-// each chunk of 64 output channels, O = P.V over tiles of 32 keys, the V
-// chunk and the weights' tile staged in shared memory.  Every product reads
-// shared memory and P is read ch / 64 times: slow, and exact to fp32
-// accumulation.
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
-attn_wide(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ ws,
-          int T_, int H, int ch, long long items, int qtiles, float scale_log2) {
-  __shared__ float Qs[kWideRows][kWideCh + 1];
-  __shared__ float KVs[kWideKeys][kWideCh + 1];
-  __shared__ float Ps[kWideRows][kWideKeys + 1];
-  const int tid = threadIdx.x, r = tid / kWideLanes, sl = tid % kWideLanes;
-  const size_t W3 = (size_t)3 * H * ch, C = (size_t)H * ch;
-  float* P = ws + (size_t)blockIdx.x * kWideRows * T_;
-  float* pr = P + (size_t)r * T_;
-
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const long long bh = item / qtiles;
-    const int q0 = (int)(item % qtiles) * kWideRows;
-    const long long b = bh / H;
-    const int h = (int)(bh % H);
-    const T* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
-
-    for (int k0 = 0; k0 < T_; k0 += kWideKeys) {
-      float s[kWideKeys / kWideLanes];
-#pragma unroll
-      for (int i = 0; i < kWideKeys / kWideLanes; ++i) s[i] = 0.f;
-      for (int c0 = 0; c0 < ch; c0 += kWideCh) {
-        __syncthreads();  // the last chunk is consumed
-        for (int i = tid; i < kWideRows * kWideCh; i += kWideThreads) {
-          const int rr = i / kWideCh, cc = i % kWideCh, row = q0 + rr, c = c0 + cc;
-          Qs[rr][cc] = row < T_ && c < ch ? wide_load(base + (size_t)row * W3 + c) : 0.f;
-        }
-        for (int i = tid; i < kWideKeys * kWideCh; i += kWideThreads) {
-          const int j = i / kWideCh, cc = i % kWideCh, key = k0 + j, c = c0 + cc;
-          KVs[j][cc] =
-              key < T_ && c < ch ? wide_load(base + (size_t)key * W3 + ch + c) : 0.f;
-        }
-        __syncthreads();
-        for (int cc = 0; cc < kWideCh; ++cc) {
-          const float qv = Qs[r][cc];
-#pragma unroll
-          for (int i = 0; i < kWideKeys / kWideLanes; ++i)
-            s[i] = fmaf(qv, KVs[sl + kWideLanes * i][cc], s[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kWideKeys / kWideLanes; ++i) {
-        const int key = k0 + sl + kWideLanes * i;
-        if (key < T_) pr[key] = s[i] * scale_log2;
-      }
-    }
-    __syncthreads();  // each row's logits were written by its own 8 lanes
-
-    float mx = -INFINITY;
-    for (int k = sl; k < T_; k += kWideLanes) mx = fmaxf(mx, pr[k]);
-#pragma unroll
-    for (int off = 1; off < kWideLanes; off *= 2)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int k = sl; k < T_; k += kWideLanes) {
-      const float e = exp2f(pr[k] - mx);
-      pr[k] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int off = 1; off < kWideLanes; off *= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float inv = 1.f / sum;
-    for (int k = sl; k < T_; k += kWideLanes) pr[k] = wide_round(pr[k] * inv, qkv);
-    __syncthreads();
-
-    const int row = q0 + r;
-    for (int c0 = 0; c0 < ch; c0 += kWideCh) {
-      float acc[kWideCh / kWideLanes];
-#pragma unroll
-      for (int u = 0; u < kWideCh / kWideLanes; ++u) acc[u] = 0.f;
-      for (int k0 = 0; k0 < T_; k0 += kWideKeys) {
-        __syncthreads();  // the last tile is consumed
-        for (int i = tid; i < kWideKeys * kWideCh; i += kWideThreads) {
-          const int j = i / kWideCh, cc = i % kWideCh, key = k0 + j, c = c0 + cc;
-          KVs[j][cc] =
-              key < T_ && c < ch ? wide_load(base + (size_t)key * W3 + 2 * ch + c) : 0.f;
-        }
-        for (int i = tid; i < kWideRows * kWideKeys; i += kWideThreads) {
-          const int rr = i / kWideKeys, j = i % kWideKeys, key = k0 + j;
-          Ps[rr][j] = key < T_ ? P[(size_t)rr * T_ + key] : 0.f;
-        }
-        __syncthreads();
-        for (int j = 0; j < kWideKeys; ++j) {
-          const float p = Ps[r][j];
-#pragma unroll
-          for (int u = 0; u < kWideCh / kWideLanes; ++u)
-            acc[u] = fmaf(p, KVs[j][sl + kWideLanes * u], acc[u]);
-        }
-      }
-      if (row < T_) {
-        T* o = out + ((size_t)b * T_ + row) * C + (size_t)h * ch;
-#pragma unroll
-        for (int u = 0; u < kWideCh / kWideLanes; ++u) {
-          const int c = c0 + sl + kWideLanes * u;
-          if (c < ch) wide_store(o + c, acc[u]);
-        }
-      }
-    }
-    __syncthreads();  // the workspace is read before the next item writes it
+template <int NV>
+cudaError_t launch_wide(const void* qkv, void* out, int B, int T_, int H, int ch, int sw,
+                        cudaStream_t st) {
+  const int slices = (ch + sw - 1) / sw;
+  unsigned blocks;
+  cudaError_t e = sliced_grid(B, T_, H, kWideRows, slices, &blocks);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(attn_wide<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wide_smem());
+  if (e != cudaSuccess) return e;
+  CUtensorMap map = {};
+  if (ch % 4 == 0) {
+    e = qkv_tensor_map(&map, qkv, false, B, T_, H, ch, 16);
+    if (e != cudaSuccess) return e;
   }
-}
-
-template <typename T>
-cudaError_t launch_wide(const void* qkv, void* out, float* ws, int ws_blocks, int B,
-                        int T_, int H, int ch, cudaStream_t st) {
-  const int qtiles = (T_ + kWideRows - 1) / kWideRows;
-  const long long items = (long long)B * H * qtiles;
-  const int blocks = (int)(items < ws_blocks ? items : ws_blocks);
-  attn_wide<T><<<blocks, kWideThreads, 0, st>>>(static_cast<const T*>(qkv),
-                                                static_cast<T*>(out), ws, T_, H, ch, items,
-                                                qtiles, kLog2e / sqrtf((float)ch));
+  attn_wide<NV><<<blocks, kWideThreads, wide_smem(), st>>>(
+      map, static_cast<const float*>(qkv), static_cast<float*>(out), T_, H, ch, slices, sw,
+      kLog2e / sqrtf((float)ch));
   return cudaGetLastError();
 }
 
-template <typename Kernel, typename T>
+template <typename Kernel>
 cudaError_t launch_any(Kernel kernel, int rows, int threads, size_t smem, const void* qkv,
                        void* out, int B, int T_, int H, int ch, cudaStream_t st) {
   if (smem > 48 * 1024) {
@@ -983,27 +983,16 @@ cudaError_t launch_any(Kernel kernel, int rows, int threads, size_t smem, const 
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((T_ + rows - 1) / rows, B * H);
-  kernel<<<grid, threads, smem, st>>>(static_cast<const T*>(qkv), static_cast<T*>(out), T_,
-                                      H, ch, kLog2e / sqrtf((float)ch));
+  kernel<<<grid, threads, smem, st>>>(static_cast<const float*>(qkv), static_cast<float*>(out),
+                                      T_, H, ch, kLog2e / sqrtf((float)ch));
   return cudaGetLastError();
-}
-
-template <int CHP>
-cudaError_t launch_bf16_any(const void* qkv, void* out, int B, int T_, int H, int ch,
-                            cudaStream_t st) {
-  if (ch > CHP) return launch_bf16_any<(CHP < kGenMaxCh ? CHP + 16 : CHP)>(
-      qkv, out, B, T_, H, ch, st);
-  return launch_any<decltype(&attn_bf16_any<CHP>), __nv_bfloat16>(
-      attn_bf16_any<CHP>, kPadRows, 128, padded_smem(CHP), qkv, out, B, T_, H, ch, st);
 }
 
 cudaError_t launch_f32_any(const void* qkv, void* out, int B, int T_, int H, int ch,
                            cudaStream_t st) {
   const size_t smem = generic_smem(ch);
-#define DIFFPIR_F32_ANY(NU)                                                              \
-  return launch_any<decltype(&attn_f32_any<NU>), float>(attn_f32_any<NU>, kGenRows,      \
-                                                        kGenThreads, smem, qkv, out, B, \
-                                                        T_, H, ch, st)
+#define DIFFPIR_F32_ANY(NU) \
+  return launch_any(attn_f32_any<NU>, kGenRows, kGenThreads, smem, qkv, out, B, T_, H, ch, st)
   if (ch <= 32) DIFFPIR_F32_ANY(4);
   if (ch <= 64) DIFFPIR_F32_ANY(8);
   if (ch <= 128) DIFFPIR_F32_ANY(16);
@@ -1041,10 +1030,10 @@ cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
   return cudaGetLastError();
 }
 
-// The kernels for widths up to 256 take (batch, head) pairs on grid y, at
+// The tuned kernels and attn_f32_any take (batch, head) pairs on grid y, at
 // most 65535 of them: more pairs run as several launches over whole samples.
 cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int ch, int rows,
-                         bool bf16, cudaStream_t st) {
+                         bool bf16, bool tuned, cudaStream_t st) {
   const size_t esize = bf16 ? 2 : 4;
   const int per = 65535 / H;  // samples per launch
   for (int b0 = 0; b0 < B; b0 += per) {
@@ -1052,11 +1041,10 @@ cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int c
     const void* q = static_cast<const char*>(qkv) + (size_t)b0 * T_ * 3 * H * ch * esize;
     void* o = static_cast<char*>(out) + (size_t)b0 * T_ * H * ch * esize;
     cudaError_t e;
-    if (ch == 16) e = launch<16>(q, o, nb, T_, H, rows, bf16, st);
+    if (!tuned) e = launch_f32_any(q, o, nb, T_, H, ch, st);
+    else if (ch == 16) e = launch<16>(q, o, nb, T_, H, rows, bf16, st);
     else if (ch == 32) e = launch<32>(q, o, nb, T_, H, rows, bf16, st);
-    else if (ch == 64) e = launch<64>(q, o, nb, T_, H, rows, bf16, st);
-    else e = bf16 ? launch_bf16_any<16>(q, o, nb, T_, H, ch, st)
-                  : launch_f32_any(q, o, nb, T_, H, ch, st);
+    else e = launch<64>(q, o, nb, T_, H, rows, bf16, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -1064,27 +1052,39 @@ cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int c
 
 }  // namespace
 
-// Returns a cudaError_t.  ch is 16, 32 or 64: the tuned kernels with rows
-// (query rows per block) 16, 32, 64 or (bf16 only) 128; any other ch up to
-// 256 runs attn_bf16_any (64 rows per block) or attn_f32_any (16), whatever
-// rows says; above 256 (or with more than 65535 heads) attn_wide, in
-// ws_blocks blocks, each with 16 * T floats of the workspace ws.  qkv and out
-// must be 16-byte aligned.
-extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B,
-                                            int T, int heads, int ch, int rows,
-                                            int is_bf16, void* workspace,
-                                            int ws_blocks, void* stream) {
+// Returns a cudaError_t.  variant, as kernels/attention.py's attention_plan
+// names it: 0 tuned (ch 16, 32 or 64, at most 65535 heads; rows, the query
+// rows per block, 16, 32, 64 or, in bf16, 128), 1 attn_bf16_any (bf16, any
+// ch and heads; rows 64 or 128, one or two warpgroups; slice_ch output
+// channels per block, 32, 64, 96, 128, 192 or 256), 2 attn_f32_any (fp32,
+// ch up to 256, at most 65535 heads), 3 attn_wide (fp32, any ch and heads;
+// slice_ch a multiple of 64 up to 512).  qkv and out must be 16-byte
+// aligned.
+extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B, int T,
+                                            int heads, int ch, int variant, int rows,
+                                            int slice_ch, int is_bf16, void* stream) {
   if (B <= 0 || T <= 0 || heads <= 0 || ch <= 0 ||
-      (rows != 16 && rows != 32 && rows != 64 && !(is_bf16 && rows == 128)) ||
       (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ch > kGenMaxCh || heads > 65535) {
-    if (workspace == nullptr || ws_blocks <= 0) return (int)cudaErrorInvalidValue;
-    float* ws = static_cast<float*>(workspace);
-    return (int)(is_bf16 ? launch_wide<__nv_bfloat16>(qkv, out, ws, ws_blocks, B, T, heads,
-                                                      ch, st)
-                         : launch_wide<float>(qkv, out, ws, ws_blocks, B, T, heads, ch, st));
+  switch (variant) {
+    case 0:
+      if ((ch != 16 && ch != 32 && ch != 64) || heads > 65535 ||
+          (rows != 16 && rows != 32 && rows != 64 && !(is_bf16 && rows == 128)))
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, is_bf16, true, st);
+    case 1:
+      if (!is_bf16 || (rows != 64 && rows != 128)) return (int)cudaErrorInvalidValue;
+      return (int)diffpir_attn_bf16_any(qkv, out, B, T, heads, ch, rows, slice_ch, st);
+    case 2:
+      if (is_bf16 || ch > kGenMaxCh || heads > 65535) return (int)cudaErrorInvalidValue;
+      return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, false, false, st);
+    case 3:
+      if (is_bf16 || slice_ch <= 0 || slice_ch % 64 || slice_ch > 512)
+        return (int)cudaErrorInvalidValue;
+      return (int)(slice_ch <= 256 ? launch_wide<4>(qkv, out, B, T, heads, ch, slice_ch, st)
+                                   : launch_wide<8>(qkv, out, B, T, heads, ch, slice_ch, st));
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, is_bf16, st);
 }

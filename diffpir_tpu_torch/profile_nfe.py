@@ -33,7 +33,7 @@ BATCH = 4
 
 # device kernel name -> class, first match wins
 CLASSES = (("groupnorm", ("gn_stats", "gn_apply", "group_norm", "GroupNorm")),
-           ("attention", ("attn_bf16", "attn_f32", "softmax", "fmha", "flash")),
+           ("attention", ("attn_bf16", "attn_f32", "attn_wide", "softmax", "fmha", "flash")),
            ("convolution", ("conv", "Conv", "implicit", "xmma_fprop", "dgrad", "wgrad",
                             "fprop")),
            ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "sm90_xmma", "cutlass")))

@@ -26,7 +26,7 @@ def _qkv(seed, b, t, heads, ch):
 
 @pytest.mark.parametrize("b,t,heads,ch", [
     (2, 64, 2, 32), (2, 64, 2, 64), (1, 256, 2, 32), (1, 256, 2, 64),
-    (1, 1024, 1, 64)])
+    (1, 1024, 1, 64), (2, 64, 2, 128), (1, 64, 2, 256)])
 def test_plain_matches_xla_and_pallas_fp32(b, t, heads, ch):
     qkv = _qkv(t + ch, b, t, heads, ch)
     got = tattn.legacy_qkv_attention_plain(torch.from_numpy(qkv), heads).numpy()
@@ -36,7 +36,8 @@ def test_plain_matches_xla_and_pallas_fp32(b, t, heads, ch):
     np.testing.assert_allclose(got, pal, **FP32)
 
 
-@pytest.mark.parametrize("t,heads,ch", [(64, 6, 64), (256, 8, 32)])
+@pytest.mark.parametrize("t,heads,ch", [(64, 6, 64), (256, 8, 32), (64, 4, 128),
+                                        (64, 2, 256)])
 def test_plain_matches_xla_bf16(t, heads, ch):
     qkv = _qkv(7, 1, t, heads, ch)
     got = tattn.legacy_qkv_attention_plain(
@@ -79,7 +80,10 @@ def test_rows_per_block_covers_t_within_kernel_limits(b, t, heads, ch, is_bf16):
         # the largest tile that still gives every SM a block
         larger = [r for r in tattn.ROWS_PER_BLOCK[is_bf16] if r > rows]
         assert all(b * heads * -(-t // r) < num_sms for r in larger)
-    assert tattn.wide_blocks(b, t, heads) <= tattn.WIDE_BLOCKS
+    # the same shapes through the variant that takes them
+    plan = tattn.attention_plan(b, t, heads, ch, is_bf16)
+    assert plan.variant == "tuned" and plan.slices == 1
+    assert plan.rows in tattn.ROWS_PER_BLOCK[is_bf16]
 
 
 def test_misaligned_qkv_is_refused_before_any_build(monkeypatch):
@@ -113,12 +117,54 @@ def test_wide_heads_plain_matches_xla_and_pallas(b, t, heads, ch):
     np.testing.assert_allclose(got, pal, **FP32)
 
 
+# (dtype, ch, heads) on either side of each boundary between the variants:
+# the tuned widths, attn_f32_any's 256 channels, grid y's 65535 heads
+VARIANT_BOUNDARIES = [
+    (True, 64, 1, "tuned"), (True, 65, 1, "bf16_any"),
+    (False, 64, 1, "tuned"), (False, 65, 1, "f32_any"),
+    (True, 256, 1, "bf16_any"), (True, 257, 1, "bf16_any"),
+    (False, 256, 1, "f32_any"), (False, 257, 1, "f32_wide"),
+    (True, 32, 65535, "tuned"), (True, 32, 65536, "bf16_any"),
+    (False, 32, 65535, "tuned"), (False, 32, 65536, "f32_wide"),
+    (True, 96, 65535, "bf16_any"), (True, 96, 65536, "bf16_any"),
+    (False, 96, 65535, "f32_any"), (False, 96, 65536, "f32_wide")]
+
+
+@pytest.mark.parametrize("is_bf16,ch,heads,variant", VARIANT_BOUNDARIES)
+def test_attention_variant_at_each_boundary(is_bf16, ch, heads, variant):
+    """One function names the kernel; the plan the wrapper hands the C entry
+    follows it, and the C entry's variant number exists."""
+    assert tattn.attention_variant(is_bf16, ch, heads) == variant
+    plan = tattn.attention_plan(2, 64, heads, ch, is_bf16)
+    assert plan.variant == variant and variant in tattn.VARIANTS
+    if variant == "tuned":
+        assert plan.rows in tattn.ROWS_PER_BLOCK[is_bf16]
+    elif variant == "bf16_any":
+        assert plan.rows in tattn.BF16_ANY_ROWS
+        assert plan.slice_ch in tattn.BF16_SLICE_CHANNELS
+    else:
+        assert plan.rows == tattn.VARIANT_ROWS[variant]
+
+
 @pytest.mark.parametrize("b,t,heads", [(1, 1, 1), (4, 4096, 2), (40000, 3, 2), (1, 65536, 1)])
-def test_wide_kernel_grid_and_workspace_are_bounded(b, t, heads):
-    """attn_wide's blocks cover every (pair, 16-row tile) item in a grid
-    stride, within WIDE_BLOCKS blocks and WIDE_WS_BYTES of workspace (one
-    block at least)."""
-    blocks = tattn.wide_blocks(b, t, heads)
-    items = b * heads * -(-t // tattn.WIDE_ROWS)
-    assert 1 <= blocks <= min(items, tattn.WIDE_BLOCKS)
-    assert blocks == 1 or blocks * tattn.WIDE_ROWS * t * 4 <= tattn.WIDE_WS_BYTES
+def test_sliced_kernels_cover_the_head_within_grid_limits(b, t, heads):
+    """attn_bf16_any and attn_wide put (pair, query tile, slice) on grid x:
+    their slices cover the head width once, each within what a block keeps
+    in registers (attn_wide's in whole chunks of 64 channels), and the
+    blocks stay within grid x, at heads of 320, 1024 and 2048 channels (and
+    96 in bf16, which slices only for parallelism)."""
+    for is_bf16, ch in ((True, 96), (True, 320), (True, 1024), (True, 2048),
+                        (False, 320), (False, 1024), (False, 2048)):
+        plan = tattn.attention_plan(b, t, heads, ch, is_bf16)
+        assert plan.variant == ("bf16_any" if is_bf16 else "f32_wide")
+        assert plan.slices * plan.slice_ch >= ch > (plan.slices - 1) * plan.slice_ch
+        widest = (tattn.BF16_SLICE_CHANNELS if is_bf16 else tattn.WIDE_SLICE_CHANNELS)[-1]
+        assert plan.slice_ch <= widest and plan.slices >= -(-ch // widest)
+        if not is_bf16:
+            assert plan.slice_ch % 64 == 0
+        assert plan.blocks == b * heads * -(-t // plan.rows) * plan.slices
+        assert 1 <= plan.blocks <= tattn.MAX_GRID_X
+        if plan.rows == tattn.BF16_ANY_ROWS[0]:
+            assert ch <= tattn.BF16_ANY_TWO_WG_MAX_CH
+    with pytest.raises(ValueError, match="more than a grid holds"):
+        tattn.attention_plan(1 << 22, 1 << 16, 1, 320, True)

@@ -186,6 +186,8 @@ def test_profile_nfe_classes_kernels_and_needs_a_card(monkeypatch):
 
     assert profile_nfe.classify("gn_stats<bf16, false>") == "groupnorm"
     assert profile_nfe.classify("void attn_bf16<64, 2>(...)") == "attention"
+    assert profile_nfe.classify("void attn_bf16_any<128>(CUtensorMap_st, ...)") == "attention"
+    assert profile_nfe.classify("void attn_wide<8>(CUtensorMap_st, ...)") == "attention"
     assert profile_nfe.classify("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
     assert profile_nfe.classify("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
     assert profile_nfe.classify("elementwise_kernel") == "other"

@@ -92,6 +92,24 @@ def test_narrow_flagship_topology_random_weights_match_jax():
     assert sum(LAUNCHES.values()) == 0
 
 
+def test_heads_from_num_heads_random_weights_match_jax():
+    """num_head_channels = -1 (guided-diffusion's default, its LSUN
+    checkpoints): each attention layer splits into num_heads heads of C /
+    num_heads channels, here one head of 128 channels at ds16 and in the
+    middle block (a width of attn_bf16_any and attn_f32_any on the card)."""
+    cfg = dict(NARROW_FLAGSHIP, num_heads=1, num_head_channels=-1)
+    jcfg = JUNetConfig(**cfg)
+    tcfg = TUNetConfig(**cfg)
+    assert tcfg.heads_for(128) == jcfg.heads_for(128) == 1
+    rng = np.random.default_rng(3)
+    flat = {k: (0.2 * rng.standard_normal(v.shape)).astype(np.float32)
+            + (1.0 if k.endswith("scale") else 0.0)
+            for k, v in _param_shapes(jcfg).items()}
+    model, _, _, got = _compare(jcfg, tcfg, flat, 64, 4)
+    assert np.abs(got).max() > 1e-2
+    assert {m.num_heads for m in model.modules() if hasattr(m, "num_heads")} == {1}
+
+
 def test_flax_to_torch_layouts():
     flat = {"a_0/conv1/kernel": np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5),
             "a_0/emb_proj/kernel": np.arange(6, dtype=np.float32).reshape(2, 3),
