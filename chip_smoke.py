@@ -23,7 +23,9 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              T = 1024 with 8 heads of 64 and at T = 256 and 64 with 16 heads,
              GroupNorm up to C = 2048) and the same model under num_heads 4,
              num_head_channels -1 (UNCOND_4HEADS: heads of 128 and 256
-             channels, batch 1 and 8), and the train step's DEMO256 at batch
+             channels, batch 1 and 8, and its attention in fp32 at batch 1:
+             (1, 1024, 4 x 128), (1, 256, 4 x 256), (1, 64, 4 x 256), all on
+             attn_f32_any), and the train step's DEMO256 at batch
              16, and guided-diffusion's 256x256 classifier (batch 8, bf16,
              its out_norm fp32; the spatial_v2 head's (8, 1, 1, 2048)
              GroupNorm in both types); every head width of the generic
@@ -34,13 +36,19 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              (partial statistics, apply) at a space rank's shards of DEMO256
              (bf16) and demo64 (fp32).  Each attention line names the
              variant that ran (kernels/attention.py attention_plan: tuned,
-             bf16_any, f32_any or f32_wide, its rows and slices).  Each case is run twice and
+             bf16_any, f32_any or f32_wide, its rows, slices and key splits).
+             Each case is run twice and
              must repeat bit for bit; the fp32 high-mean, low-variance GroupNorm input is held
              to the plain version at 1e-3.  Kernel, plain and library-call
              times in two columns: "device", 20 calls captured in a CUDA
              graph and replayed between CUDA events (no host dispatch), and
              "dispatch", 20 back-to-back Python calls between CUDA events
-             (the wrapper's host cost included where it exceeds the card's)
+             (the wrapper's host cost included where it exceeds the card's).
+             bound_ms: bytes at 3.35 TB/s or operations at the type's peak
+             (bf16 989 TFLOP/s; fp32 GroupNorm 67 on CUDA cores; fp32
+             attention 495 / 3, the rate of fp32-accurate products as three
+             TF32 products, which attn_f32_any's split-TF32 design uses; its
+             CUDA-core figure is printed beside it)
   main       the CLI path, ``diffpir_tpu_torch.main.main`` on
              configs/demo64_inpaint.yaml (trained demo64_hq prior, fp32, 4
              images, 50 NFE): PSNR against the JAX package's, launch counts,
@@ -94,7 +102,11 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              plain versions, and again under UNCOND_4HEADS (the same
              weights: 101 GroupNorm and 16 attention launches, every one on
              attn_bf16_any; its attention per forward at batch 1 and 8 from
-             phase kernels); and the CLI's --profile on tiny_demo32 (4 NFE)
+             phase kernels), and the same four-head model in fp32 at batch 1
+             (101 GroupNorm and 16 attention launches, every one on
+             attn_f32_any, within UNCOND_FP32_FORWARD_REL_TOL = 1e-4 of the
+             plain route; its fp32 attention per forward from phase
+             kernels); and the CLI's --profile on tiny_demo32 (4 NFE)
              writes a trace that names both kernels (into
              .kernel_build/profile/, deleted after).  Prints latency p50/p95
              (/stats), images per second and ms per NFE of the coalesced
@@ -402,6 +414,10 @@ PAIRS_CASE = (33000, 4, 2, 32)
 UNCOND_4HEADS = dict(num_heads=4, num_head_channels=-1)
 UNCOND_4HEADS_ATTN = 16
 UNCOND_GROUPNORMS = 101
+# ... and in fp32, every attention call on attn_f32_any: the forward through
+# the kernels against the plain versions at the fp32 parity bar the
+# converter's tests use
+UNCOND_FP32_FORWARD_REL_TOL = 1e-4
 # Phase parallel.  Ranks that share the one card run over gloo, a collective
 # going through host memory (gloo's own transport aborts on a CUDA tensor
 # with this torch); so these runs show correctness and memory per rank, not
@@ -492,8 +508,14 @@ REMAT_LOSS_REL_TOL = 1e-3
 REMAT_GRAD_REL_TOL = 1e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
+# (fp32 on CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# fp32 attention's operations bound: fp32-accurate products on the tensor
+# cores, three TF32 products each (495 TFLOP/s dense TF32), the least time
+# in which the card computes them (attn_f32_any's split, and SDPA's fp32
+# kernel, do so); GroupNorm's fp32 bound stays at the CUDA-core rate
+SPLIT_TF32_FLOPS = 495e12 / 3
 
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "PIL", "diffpir_tpu")
 
@@ -744,15 +766,17 @@ def attn_case(b, t, heads, ch, dtype_name, gen):
     plan = (kat.attention_plan(b, t, heads, ch, dtype_name == "bfloat16",
                                torch.cuda.get_device_properties(0).multi_processor_count)
             if hasattr(kat, "attention_plan") else None)
-    variant = "-" if plan is None else (f"{plan.variant} rows={plan.rows} "
-                                        f"slice={plan.slice_ch}x{plan.slices}")
+    variant = "-" if plan is None else (
+        f"{plan.variant} rows={plan.rows} slice={plan.slice_ch}x{plan.slices}"
+        + (f" key_splits={plan.key_splits}" if getattr(plan, "key_splits", 1) > 1 else ""))
     lib_err = float((library().permute(0, 2, 1, 3).reshape(b, t, heads * ch).float()
                      - ref.float()).abs().max())
     nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
     flops = 4 * b * heads * t * t * ch
+    peak = SPLIT_TF32_FLOPS if dtype_name == "float32" else PEAK_FLOPS[dtype_name]
     return dict(err=err, ok=ok, repeats=torch.equal(out, again), bytes=nbytes,
-                flops=flops, dtype=dtype_name, library_err=lib_err, variant=variant,
-                **time_all(kernel=kern, plain=plain, library=library))
+                flops=flops, dtype=dtype_name, peak_flops=peak, library_err=lib_err,
+                variant=variant, **time_all(kernel=kern, plain=plain, library=library))
 
 
 def dps_grad_case(opt: str, over: dict, step: int, gen, dev):
@@ -917,8 +941,11 @@ PARTIAL_STATS_RTOL = 1e-4
 
 
 def bound(case) -> tuple[float, str]:
+    """The least time of a case: its bytes at the memory rate or its
+    operations at the peak rate of their type (attention in fp32: the
+    split-TF32 rate), whichever is longer."""
     t_bytes = case["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = case["flops"] / PEAK_FLOPS[case["dtype"]] * 1e3
+    t_ops = case["flops"] / case.get("peak_flops", PEAK_FLOPS[case["dtype"]]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1224,6 +1251,45 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
         out["uncond553m_4heads_attention_per_forward"] = {
             f"b{b_}": {k: p[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                         "calls")} for b_, p in per4.items()}
+
+        # the same weights under UNCOND_4HEADS in fp32: every attention call
+        # on attn_f32_any (split-TF32 products), at the fp32 parity bar
+        fwd4f = {}
+        for route in ("cuda", "plain"):
+            m = UNet(h4cfg, dtype=torch.float32, kernels=route)
+            m.load_state_dict(port_sd)
+            m = m.to(dev).eval()
+            LAUNCHES.clear()
+            kat.VARIANT_LAUNCHES.clear()
+            with torch.no_grad():
+                fwd4f[route] = m(x1, t[:1]).float()
+            torch.cuda.synchronize()
+            fwd4f[route + "_launches"] = dict(LAUNCHES)
+            fwd4f[route + "_variants"] = dict(kat.VARIANT_LAUNCHES)
+            del m
+        torch.cuda.empty_cache()
+        rel4f = float((fwd4f["cuda"] - fwd4f["plain"]).abs().max()
+                      / fwd4f["plain"].abs().max())
+        p4f = per_fwd[("uncond553m 4 heads fp32 b1", "attn")]
+        log(f"serve: 256x256_diffusion_uncond with num_heads 4, num_head_channels -1, same "
+            f"weights, fp32 b1: max |kernel - plain| / max |plain| = {rel4f:.3e} (bar "
+            f"{UNCOND_FP32_FORWARD_REL_TOL}); launches {fwd4f['cuda_launches']}, attention by "
+            f"variant {fwd4f['cuda_variants']} (plain {fwd4f['plain_launches']}); attention "
+            f"per forward (phase kernels, device ms): kernel {p4f['ms']:.4f} plain "
+            f"{p4f['plain_ms']:.4f} SDPA {p4f['library_ms']:.4f} bound {p4f['bound_ms']:.4f} "
+            f"({p4f['bound_by']}, split-TF32 rate)")
+        if (fwd4f["cuda_launches"] != want4 or fwd4f["plain_launches"]
+                or fwd4f["cuda_variants"] != {"f32_any": UNCOND_4HEADS_ATTN}):
+            raise AssertionError(f"fp32 four-head 553M launches {fwd4f['cuda_launches']} "
+                                 f"{fwd4f['cuda_variants']}, expected {want4} on f32_any")
+        if not bool(torch.isfinite(fwd4f["cuda"]).all()):
+            raise AssertionError("the fp32 four-head 553M forward is not finite")
+        if not rel4f <= UNCOND_FP32_FORWARD_REL_TOL:
+            raise AssertionError(f"fp32 four-head 553M forward differs by {rel4f} (relative)")
+        out["uncond553m_4heads_fp32_forward_rel"] = rel4f
+        out["uncond553m_4heads_fp32_variants"] = fwd4f["cuda_variants"]
+        out["uncond553m_4heads_fp32_attention_per_forward"] = {
+            k: p4f[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "calls")}
         del port_sd
 
         # --profile: a Chrome trace of a 4-NFE tiny_demo32 run holds both kernels
@@ -3130,6 +3196,11 @@ def run(argv: list[str]) -> int:
                 attn_keys.add(key + (dt,))
             # the spatial_v2 classifier head's GroupNorm: one pixel, 2048 channels
             gn_keys.add(((CLASSIFIER_BATCH, 1, 1, 2048), dt, False, False))
+        # the four-head 553M model's attention in fp32 (phase serve's fp32
+        # forward, all on attn_f32_any)
+        calls553h4f32 = [c[:5] + ("float32",) for c in calls553h4 if c[0] == "attn"]
+        for c in calls553h4f32:
+            attn_keys.add(c[1:])
         # the classifier in its own types: bf16, and fp32 at out_norm
         for c in callsclf:
             (gn_keys if c[0] == "gn" else attn_keys).add(c[1:])
@@ -3155,7 +3226,9 @@ def run(argv: list[str]) -> int:
                 f"{key[4]} variant={r['variant']}: max_abs_err={r['err']:.3e} "
                 f"repeats={r['repeats']} "
                 f"{columns(r)} (library err {r['library_err']:.2e}) "
-                f"bound_ms={bound(r)[0]:.4e}"
+                f"bound_ms={bound(r)[0]:.4e} ({bound(r)[1]})"
+                + (f" cuda_core_bound_ms={r['flops'] / PEAK_FLOPS['float32'] * 1e3:.4e}"
+                   if key[4] == "float32" else "")
                 + ("" if r["ok"] and r["repeats"] else "  FAIL"))
             if not (r["ok"] and r["repeats"]):
                 failures.append(("legacy_qkv_attention",) + key)
@@ -3212,6 +3285,7 @@ def run(argv: list[str]) -> int:
 
         per_fwd = {(path, kind): per_forward(calls, kind)
                    for path, calls in paths for kind in ("gn", "attn")}
+        per_fwd[("uncond553m 4 heads fp32 b1", "attn")] = per_forward(calls553h4f32, "attn")
 
         def half_per_forward(part):
             """Sums over the GroupNorm calls of one DEMO256 forward on a space
@@ -3597,6 +3671,8 @@ def run(argv: list[str]) -> int:
             "uncond553m_b1_per_forward": per_fwd[("uncond553m b1", kind)],
             "uncond553m_4heads_b1_per_forward": per_fwd[("uncond553m 4 heads b1", kind)],
             "uncond553m_4heads_b8_per_forward": per_fwd[("uncond553m 4 heads b8", kind)],
+            **({"uncond553m_4heads_fp32_b1_per_forward":
+                per_fwd[("uncond553m 4 heads fp32 b1", kind)]} if kind == "attn" else {}),
             "train_demo256_b16_per_forward": per_fwd[("demo256 b16", kind)],
             "classifier_b8_per_forward": per_fwd[("classifier b8", kind)]})
         if kind == "gn":
@@ -3606,7 +3682,9 @@ def run(argv: list[str]) -> int:
             record["kernels"][-1]["wide_heads_and_pairs"] = wide
             record["kernels"][-1]["launches_by_variant"] = {
                 "main demo64_inpaint": main_variants,
-                "serve uncond553m 4 heads b1 forward": serve_out["uncond553m_4heads_variants"]}
+                "serve uncond553m 4 heads b1 forward": serve_out["uncond553m_4heads_variants"],
+                "serve uncond553m 4 heads fp32 b1 forward":
+                    serve_out["uncond553m_4heads_fp32_variants"]}
             paths = record["kernels"][-1]["launches_per_path"]
             paths["parallel demo256 sp=2 rank 0"] = parallel_out["sp_launches"].get(name, 0)
             paths["parallel demo256 space=2 bundle rank 0"] = \

@@ -9,9 +9,10 @@ number of (batch, head) pairs is taken.
 
 ``attention_plan`` is the one place that decides how a call runs: its
 variant (``attention_variant``: "tuned" at widths 16, 32 and 64; "bf16_any",
-wgmma fed by TMA, for every other bf16 width and head count; "f32_any" for
-fp32 widths up to 256; "f32_wide" beyond, and past 65535 heads in fp32), the
-query rows of a block and the output slices.  The C entry receives it.
+wgmma fed by TMA, for every other bf16 width and head count; "f32_any",
+split-TF32 products on tensor cores, for every other fp32 width up to 256
+and head count; "f32_wide" beyond), the query rows of a block and the
+output slices.  The C entry receives it.
 ``VARIANT_LAUNCHES`` counts the launches by variant.
 
 ``legacy_qkv_attention`` runs the plain version for a CPU tensor and the CUDA
@@ -50,18 +51,22 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
 __all__ = ["legacy_qkv_attention", "legacy_qkv_attention_plain",
            "LegacyQKVAttentionFunction", "legacy_qkv_attention_backward",
            "attention_rows_per_block", "attention_variant", "attention_plan",
-           "AttentionPlan", "VARIANT_LAUNCHES", "check_inputs"]
+           "AttentionPlan", "VARIANT_LAUNCHES", "check_inputs", "f32_any_smem",
+           "f32_any_group_rows"]
 
 # head widths the kernel takes: every one (attention_variant names the kernel)
 KERNEL_HEAD_CHANNELS = range(1, sys.maxsize)
-# the tuned kernels' widths; they and attn_f32_any (fp32, widths up to
-# F32_ANY_MAX_CH) take (batch, head) pairs on grid y, so a sample may have at
-# most MAX_GRID_Y heads (more pairs run as launches over whole samples)
+# the tuned kernels' widths; they take (batch, head) pairs on grid y, so a
+# sample may have at most MAX_GRID_Y heads (more pairs run as launches over
+# whole samples)
 TUNED_HEAD_CHANNELS = (16, 32, 64)
-F32_ANY_MAX_CH = 256
 MAX_GRID_Y = 65535
-# the sliced kernels put (pair, query tile, slice) on grid x
+# attn_f32_any takes fp32 widths up to F32_ANY_MAX_CH and any head count
+F32_ANY_MAX_CH = 256
+# the other kernels put (pair, query tile[, slice]) on grid x
 MAX_GRID_X = 2**31 - 1
+# dynamic shared memory a block may have on the card
+MAX_SMEM = 232448
 # the C entry's variant numbers
 VARIANTS = {"tuned": 0, "bf16_any": 1, "f32_any": 2, "f32_wide": 3}
 # query tiles the tuned kernels take, largest first: bf16 warps own 16 rows
@@ -73,7 +78,24 @@ ROWS_PER_BLOCK = {True: (128, 64, 32, 16), False: (64, 32, 16)}
 # their Q fits in shared memory beside the ring)
 BF16_ANY_ROWS = (128, 64)
 BF16_ANY_TWO_WG_MAX_CH = 384
-VARIANT_ROWS = {"f32_any": 16, "f32_wide": 16}
+VARIANT_ROWS = {"f32_wide": 16}
+# attn_f32_any: blocks of eight warps as (row groups, warps a row group
+# splitting each tile's keys), most rows first; a row group is 32 query rows
+# up to 128 channels (two m-tiles a warp), 16 beyond; a warp takes
+# F32_ANY_WARP_KEYS keys of a tile
+F32_ANY_SHAPES = ((8, 1), (4, 2), (2, 4))
+# ... and a block of four warps, two row groups of 16 rows (above 128
+# channels) times two key splits, where eight warps a block would leave half
+# the SMs idle
+F32_ANY_NARROW = (2, 2)
+F32_ANY_WARP_KEYS = 16
+# its instantiations: n-tiles of 8 channels each holds
+F32_ANY_TILES = (1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 32)
+# blocks a query tile at most, each a share of the key tiles, where the grid
+# would leave half the SMs idle and the keys span F32_ANY_CHUNK_MIN_TILES
+# tiles or more (their partial sums merged by a second launch)
+F32_ANY_MAX_CHUNKS = 8
+F32_ANY_CHUNK_MIN_TILES = 3
 # output channels a block of attn_bf16_any keeps in registers (its
 # instantiations), and at most a block of attn_wide does (its two)
 BF16_SLICE_CHANNELS = (32, 64, 96, 128, 192, 256)
@@ -85,16 +107,33 @@ VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 
 def attention_variant(is_bf16: bool, ch: int, heads: int) -> str:
     """The kernel that takes a head width and a head count: "tuned" (ch 16,
-    32 or 64), else "bf16_any" in bf16, "f32_any" in fp32 up to 256
-    channels, "f32_wide" beyond; every grid-y kernel at most MAX_GRID_Y
-    heads."""
+    32 or 64, at most MAX_GRID_Y heads), else "bf16_any" in bf16, "f32_any"
+    in fp32 up to 256 channels, "f32_wide" beyond."""
     if ch in TUNED_HEAD_CHANNELS and heads <= MAX_GRID_Y:
         return "tuned"
     if is_bf16:
         return "bf16_any"
-    if ch <= F32_ANY_MAX_CH and heads <= MAX_GRID_Y:
+    if ch <= F32_ANY_MAX_CH:
         return "f32_any"
     return "f32_wide"
+
+
+def f32_any_group_rows(ch: int) -> int:
+    """Query rows of an attn_f32_any row group (csrc/attention.cu
+    f32_any_mtiles): 32 up to 128 channels, else 16."""
+    return 32 if ch <= 128 else 16
+
+
+def f32_any_smem(ch: int, rows: int, splits: int) -> int:
+    """Dynamic shared memory of attn_f32_any (csrc/attention.cu
+    f32_any_smem): Q's rows and two K/V tiles of F32_ANY_WARP_KEYS * splits
+    keys, rows of the instantiation's width (F32_ANY_TILES n-tiles of 8
+    channels) plus 4 floats; or, if more, the key-split warps' (m, l, O)
+    for the merge."""
+    nt = next(n for n in F32_ANY_TILES if 8 * n >= ch)
+    tiles = (8 * nt + 4) * (rows + 4 * F32_ANY_WARP_KEYS * splits)
+    merge = (splits - 1) * (rows // 16) * 32 * (4 * nt + 4)
+    return 4 * max(tiles, merge)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,21 +143,47 @@ class AttentionPlan:
     slice_ch: int  # output channels per block
     slices: int    # blocks per (pair, query tile)
     blocks: int    # blocks over every launch of the call
+    key_splits: int = 1  # warps of attn_f32_any sharing a row group
+    kv_chunks: int = 1   # blocks of attn_f32_any sharing a query tile's keys
 
 
 def attention_plan(batch: int, t: int, heads: int, ch: int, is_bf16: bool,
                    num_sms: int = 132) -> AttentionPlan:
-    """How a call is launched.  attn_bf16_any cuts a head wider than 256
-    into ceil(ch / 256) slices, each of the smallest instantiation that
+    """How a call is launched.  attn_f32_any takes 8, 4 or 2 row groups
+    (f32_any_group_rows) a block, its eight warps in one, two or four splits
+    of the keys: the most rows whose grid still gives every SM a block;
+    above 128 channels, where that grid leaves half the SMs idle, blocks of
+    four warps (F32_ANY_NARROW); where the grid still leaves half the SMs
+    idle, each query tile's keys are cut into up to F32_ANY_MAX_CHUNKS
+    chunks, a block each.  attn_bf16_any cuts a head wider than 256 into
+    ceil(ch / 256) slices, each of the smallest instantiation that
     holds its share, and into more (down to 64 channels) while the grid
     would leave most SMs idle; attn_wide into equal slices of up to 512
     channels, or 256 where the grid would be small.  Raises when the sliced
     kernels' grid would pass MAX_GRID_X."""
     variant = attention_variant(is_bf16, ch, heads)
+    splits = chunks = 1
     if variant == "tuned":
         rows, slice_ch = attention_rows_per_block(batch, t, heads, is_bf16, num_sms), ch
     elif variant == "f32_any":
-        rows, slice_ch = VARIANT_ROWS[variant], ch
+        # the most query rows whose grid still gives every SM a block, the
+        # block's other warps splitting the keys; else the fewest rows
+        gr = f32_any_group_rows(ch)
+        fits = [(gr * g, k) for g, k in F32_ANY_SHAPES
+                if f32_any_smem(ch, gr * g, k) <= MAX_SMEM]
+        rows, splits = next((s for s in fits if batch * heads * -(-t // s[0]) >= num_sms),
+                            fits[-1])
+        narrow = (gr * F32_ANY_NARROW[0], F32_ANY_NARROW[1])
+        if (gr == 16 and narrow[0] < rows and 2 * batch * heads * -(-t // rows) <= num_sms
+                and f32_any_smem(ch, *narrow) <= MAX_SMEM):
+            rows, splits = narrow
+        # and where that grid would still leave half the SMs idle, the keys
+        # in chunks of at least one tile
+        tiles = batch * heads * -(-t // rows)
+        key_tiles = -(-t // (F32_ANY_WARP_KEYS * splits))
+        if 2 * tiles <= num_sms and key_tiles >= F32_ANY_CHUNK_MIN_TILES:
+            chunks = min(F32_ANY_MAX_CHUNKS, num_sms // tiles, key_tiles)
+        slice_ch = ch
     elif variant == "f32_wide":
         # slices of up to 512 channels (S computed once for each) where the
         # grid still fills the card twice over, else up to 256; equal shares
@@ -144,11 +209,11 @@ def attention_plan(batch: int, t: int, heads: int, ch: int, is_bf16: bool,
         share = -(-ch // n)
         slice_ch = next(w for w in BF16_SLICE_CHANNELS if w >= share)
     slices = -(-ch // slice_ch)
-    blocks = batch * heads * -(-t // rows) * slices
-    if variant in ("bf16_any", "f32_wide") and blocks > MAX_GRID_X:
+    blocks = batch * heads * -(-t // rows) * slices * chunks
+    if variant != "tuned" and blocks > MAX_GRID_X:
         raise ValueError(f"legacy_qkv_attention: ({batch}, {t}, {heads} x {ch}) needs "
                          f"{blocks} blocks, more than a grid holds ({MAX_GRID_X})")
-    return AttentionPlan(variant, rows, slice_ch, slices, blocks)
+    return AttentionPlan(variant, rows, slice_ch, slices, blocks, splits, chunks)
 
 
 def attention_rows_per_block(batch: int, t: int, heads: int, is_bf16: bool,
@@ -207,9 +272,13 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     out = torch.empty((b, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
     is_bf16 = qkv.dtype == torch.bfloat16
     plan = attention_plan(b, t, num_heads, ch, is_bf16, _num_sms(qkv.device.index))
+    # attn_f32_any's partial sums of its key chunks: O, then (max, sum) per row
+    work = (torch.empty(b * num_heads * t * plan.kv_chunks * (ch + 2), dtype=torch.float32,
+                        device=qkv.device) if plan.kv_chunks > 1 else None)
     rc = lib.diffpir_legacy_qkv_attention(
-        qkv.data_ptr(), out.data_ptr(), b, t, num_heads, ch, VARIANTS[plan.variant],
-        plan.rows, plan.slice_ch, int(is_bf16), current_stream_handle(qkv.device))
+        qkv.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), b, t,
+        num_heads, ch, VARIANTS[plan.variant], plan.rows, plan.slice_ch, plan.key_splits,
+        plan.kv_chunks, int(is_bf16), current_stream_handle(qkv.device))
     raise_on_error("legacy_qkv_attention", rc)
     LAUNCHES["legacy_qkv_attention"] += 1
     VARIANT_LAUNCHES[plan.variant] += 1

@@ -53,8 +53,10 @@ _SIGNATURES = {
     # silu, is_bf16, stream
     "diffpir_groupnorm_apply_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _P],
-    # qkv, out, B, T, heads, ch, variant, rows, slice_ch, is_bf16, stream
-    "diffpir_legacy_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qkv, out, workspace, B, T, heads, ch, variant, rows, slice_ch, key_splits,
+    # kv_chunks, is_bf16, stream
+    "diffpir_legacy_qkv_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P],
 }
 
 

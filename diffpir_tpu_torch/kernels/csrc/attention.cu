@@ -31,8 +31,9 @@
 // the grid (kernels/attention.py attention_rows_per_block) so that small
 // batch*heads still fill the SMs.
 //
-// Design, fp32 (attn_f32): the fp32 tolerance rules out TF32, so this path
-// stays on CUDA cores, where shared memory feeds a lane 32 floats per SM
+// Design, fp32 (attn_f32): one TF32 product per fp32 product misses the fp32
+// tolerance, and this path stays on CUDA cores (attn_f32_any below shows the
+// split that keeps fp32's accuracy on tensor cores), where shared memory feeds a lane 32 floats per SM
 // clock against 128 FMAs: each value read must serve several rows.  Eight
 // lanes share two query rows: at ch 16 and 32 four split the keys of a tile
 // and two the channels, at ch 64 two and four (16-byte chunks interleaved, dot
@@ -46,11 +47,11 @@
 // attention_plan (variant, query rows, output slice), and passed to the C
 // entry: "tuned" (attn_bf16, attn_f32) at ch 16, 32 and 64; "bf16_any"
 // (attn_bf16_any) for every other bf16 width and head count; "f32_any"
-// (attn_f32_any) for fp32 widths up to 256; "f32_wide" (attn_wide) beyond,
-// and for more than 65535 heads in fp32.  The tuned kernels and
-// attn_f32_any take the (batch, head) pairs on grid y, at most 65535; more
-// pairs run as several launches over whole samples.  attn_bf16_any and
-// attn_wide put (pair, query tile, output slice) on grid x.
+// (attn_f32_any) for every other fp32 width up to 256, and the tuned widths
+// past 65535 heads; "f32_wide" (attn_wide) beyond 256.  The tuned kernels take
+// the (batch, head) pairs on grid y, at most 65535; more pairs run as several
+// launches over whole samples.  attn_f32_any puts (pair, query tile) on grid
+// x, attn_bf16_any and attn_wide (pair, query tile, output slice).
 //
 // Design, attn_bf16_any: a config with num_heads set and num_head_channels
 // -1 (guided-diffusion's default) gives widths such as 96, 128, 192, 256 and,
@@ -75,14 +76,43 @@
 // product of a tile overwrites S through wgmma's scale-d (a store to an
 // accumulator in flight made ptxas serialize every wgmma).
 //
-// Design, attn_f32_any (fp32, widths 1 .. 256 but the tuned ones): a simple
-// kernel on CUDA cores that takes ch at run time: 16 rows per block, 8
-// lanes per row, Q and a 32-key K/V tile in shared memory (up to 82 KB at ch
-// 256); every product reads shared memory, so it is slow.
+// Design, attn_f32_any (fp32, widths 1 .. 256 but the tuned ones, any head
+// count).  Bound: operations, 4 T^2 ch a pair (34 GFLOP at (8, 1024, 4 x
+// 256): 0.21 ms at the card's 495/3 TFLOP/s of fp32-accurate tensor-core
+// products, 0.51 ms at 67 TFLOP/s on CUDA cores).  One TF32 product (10
+// mantissa bits, about 5e-4 of a logit) misses the fp32 bars (atol 2e-5,
+// rtol 1e-4); the split does not: hi = x rounded to TF32 and lo = x - hi (of
+// which the product reads the TF32 part) give x to about 2^-22, and hi.hi +
+// hi.lo + lo.hi, each product exact in fp32 and summed in fp32, leave out
+// lo.lo alone, about 2^-22 of the product: fp32's accuracy at three
+// mma.sync.m16n8k8 TF32 products for each (SDPA's fp32 kernel, CUTLASS's
+// OpMultiplyAddFastF32, does the same).  In practice the kernel is bound by
+// instruction issue: every operand value is split (Q and K per fragment as
+// read from shared memory, P once per k-step from S's registers, V per
+// fragment), so the split is integer work, an add and a mask and one FADD
+// (cvt.rna for hi and lo made it nine instructions a value), and a warp
+// holds two m-tiles of 16 query rows up to 128 channels so that each split
+// K and V fragment feeds two products.  What held the CUDA-core version
+// back (16 query rows a block, so K and V came from L2 T/16 times;
+// synchronous 4-byte copies between two barriers; every FMA reading shared
+// memory) is gone: eight warps a block, as 8, 4 or 2 row groups of 32 (16
+// above 128 channels) query rows times 1, 2 or 4 warps splitting each
+// tile's keys (merged at the end), picked by attention_plan as the most
+// rows whose grid still gives every SM a block; where even that grid leaves
+// half the SMs idle, each query tile's keys are cut into up to 8 chunks, a
+// block each, whose partial sums a second launch merges in chunk order.  Q
+// and K/V tiles of 16 keys a warp by 16-byte cp.async, the next tile in
+// flight, one barrier a tile; S, P and O in registers; rows padded to
+// ld % 8 == 4 floats at the instantiation's width (compile-time strides:
+// immediate shared-memory offsets), so that each fragment load is free of
+// bank conflicts.  Widths that are no multiple of 4 (rows off 16-byte
+// boundaries) are copied element by element into the same zero-padded
+// tiles: a correctness path.  No floating-point atomics: reruns are
+// bit-identical.
 //
-// Design, attn_wide (fp32, heads wider than 256): the fp32 bars rule out
-// TF32, so it runs on CUDA cores; bound: operations.  Flash attention with
-// no logits workspace: 64-key tiles of S in registers with an online
+// Design, attn_wide (fp32, heads wider than 256): CUDA cores (the split of
+// attn_f32_any is not carried over to it yet); bound: operations.  Flash
+// attention with no logits workspace: 64-key tiles of S in registers with an online
 // softmax, the head width streamed through shared memory in chunks of 64
 // channels, one a barrier, that TMA copies three chunks ahead; output slices
 // of up to 512 channels (S recomputed for each; one slice where the grid
@@ -550,122 +580,432 @@ attn_f32(const float* __restrict__ qkv, float* __restrict__ out, int T_, int H,
 }
 
 // ---------------------------------------------------------------------------
-// any other head width, fp32: CUDA cores
+// any other head width up to 256, fp32: split-TF32 on tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kGenRows = 16;      // query rows per block
-constexpr int kGenKeys = 32;      // keys per tile
-constexpr int kGenLanes = 8;      // lanes per query row
-constexpr int kGenThreads = kGenRows * kGenLanes;
-constexpr int kGenMaxCh = 256;
+constexpr int kAnyMaxCh = 256;
+constexpr int kAnyWarpKeys = 16;     // a warp's keys of a tile: two n-tiles of S
+constexpr int kMaxDynSmem = 232448;  // dynamic shared memory a block may have
 
-// Padded row of the shared tiles, in floats: odd, so that lanes reading one
-// column of different rows hit different banks.
-__host__ __device__ __forceinline__ int generic_ld(int ch) { return ch | 1; }
+// The instantiations of attn_f32_any: n-tiles of 8 channels each holds
+// (exact at GENERIC widths 8, 24, 48, 80, 96, 128, 192 and 256)
+constexpr int kAnyTiles[] = {1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 32};
 
-__host__ __forceinline__ size_t generic_smem(int ch) {
-  return ((size_t)(kGenRows + 2 * kGenKeys) * generic_ld(ch) +
-          kGenRows * (kGenKeys + 1)) * sizeof(float);
+// the instantiation that takes ch channels (ch <= kAnyMaxCh)
+__host__ __forceinline__ int f32_any_tiles(int ch) {
+  for (int n : kAnyTiles)
+    if (8 * n >= ch) return n;
+  return 32;
 }
 
-// Head width ch at run time.  A block takes 16 query rows of one (batch,
-// head) pair; the 8 lanes of a row split the 32 keys of a tile for
-// S = Q.K^T (keys lane, lane + 8, ...) and the channels for O += P.V
-// (channels lane, lane + 8, ...; NU of them at most, NU * 8 >= ch).  Q and
-// the K/V tile sit in shared memory; logits, the online softmax and the
-// accumulator are fp32.
-template <int NU>
-__global__ void __launch_bounds__(kGenThreads)
-attn_f32_any(const float* __restrict__ qkv, float* __restrict__ out, int T_, int H, int ch,
-             float scale_log2) {
-  extern __shared__ float gsm[];
-  const int ld = generic_ld(ch);
-  float* Qs = gsm;                       // [kGenRows][ld]
-  float* Ks = Qs + kGenRows * ld;        // [kGenKeys][ld]
-  float* Vs = Ks + kGenKeys * ld;        // [kGenKeys][ld]
-  float* Ps = Vs + kGenKeys * ld;        // [kGenRows][kGenKeys + 1]
+// m-tiles of 16 query rows a warp of attn_f32_any holds: two up to 128
+// channels (each split K and V fragment then feeds two products), one
+// beyond (O's registers)
+__host__ __device__ constexpr int f32_any_mtiles(int no) { return no <= 16 ? 2 : 1; }
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int W3 = 3 * H * ch;
+// Shared memory of attn_f32_any for ch channels, `rows` query rows and
+// `splits` warps a row group: Q's rows and a double buffer of K and V tiles
+// of 16 * splits keys, rows of the instantiation's width plus 4 floats;
+// after the last tile the same bytes take the (m, l, O) of the key-split
+// warps for the merge
+__host__ __forceinline__ size_t f32_any_smem(int ch, int rows, int splits) {
+  const int no = f32_any_tiles(ch);
+  const size_t tiles = (size_t)(8 * no + 4) * (rows + 4 * kAnyWarpKeys * splits);
+  const size_t merge = (size_t)(splits - 1) * (rows / 16) * 32 * (4 * no + 4);
+  return (tiles > merge ? tiles : merge) * sizeof(float);
+}
+
+// x = hi + lo: hi is x rounded to TF32, to nearest with ties away (half a
+// unit of the 13 dropped bits added, then those bits cleared: what
+// cvt.rna.tf32.f32 computes, less its check for inf and NaN, which cost
+// ptxas two more instructions for each of them), lo = x - hi, exact in fp32;
+// the TF32 product reads lo's top 11 significant bits (its 13 low bits are
+// dropped), so hi + lo stands for x to about 2^-22 of x.  Three instructions
+// a value, against nine with cvt.rna for both.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b, a 16 x 8 (rows g, g + 8; columns t4, t4 + 4), b 8 x 8 (rows t4,
+// t4 + 4; column g), TF32 products exact in fp32, fp32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b to fp32 accuracy: the split's three products, the small ones
+// first (lo.lo, about 2^-22 of the product, is left out)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// Head width ch at run time, held as NO n-tiles of 8 channels (the columns
+// from ch to 8 NO zero), any number of (batch, head) pairs; (pair, query
+// tile, key chunk) on grid x.  A block takes `rows` query rows of one pair
+// in row groups of 16 MT rows (MT m-tiles a warp), `splits` warps a row
+// group (blockDim = 2 * rows * splits / MT), and the key tiles of its chunk
+// (all where chunks = 1): the warps of a group share its rows and split
+// each tile's 16 * splits keys, 16 each, and merge their (m, l, O) at the
+// end through shared memory; with chunks > 1 the block writes (m, l, O) to
+// `part` for attn_f32_any_merge.  Q and tile t_lo are copied by 16-byte
+// cp.async, then each next tile into the other half of a double buffer
+// while this one is used (element by element where ch % 4 != 0), one
+// barrier a tile.  A warp computes S = Q K^T for its rows and keys
+// (mma.sync m16n8k8 on the split operands; with one m-tile, hi.hi, hi.lo
+// and lo.hi in three accumulators so that six products of a k-step are
+// independent), scales it by log2(e) / sqrt(ch) (both of the reference's
+// ch^-1/4 factors and the exp2 base), runs the online softmax on the
+// accumulator fragments (row max by quad shuffles, ex2), and O += P V with
+// P split from the same registers: the k index t4 of the A fragment stands
+// for key 2 t4 and t4 + 4 for key 2 t4 + 1, which is S's accumulator
+// layout, and V's B fragment reads the same keys.  O stays in registers
+// (MT * NO * 4 floats a thread).  Rows of the shared tiles hold LD = 8 NO +
+// 4 floats (LD % 8 == 4: every fragment load of a warp hits 32 distinct
+// banks), known at compile time like the loops over channels, so that
+// shared-memory addresses are immediate offsets.
+template <int NO, int MT>
+__global__ void __launch_bounds__(256)
+attn_f32_any(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ part,
+             int T_, int H, int ch, int rows, int chunks, float scale_log2) {
+  constexpr int NT = kAnyWarpKeys / 8;  // n-tiles of S, k-steps of P.V
+  constexpr int NA = MT == 1 ? 3 : 1;   // accumulators of S
+  constexpr int GR = 16 * MT;           // query rows of a row group
+  constexpr int CW = 8 * NO, ld = CW + 4;
+  extern __shared__ __align__(16) float fsm[];
+  const int groups = rows / GR, splits = blockDim.x / (32 * groups);
+  const int BK = kAnyWarpKeys * splits;
+  float* Qs = fsm;               // [rows][ld]
+  float* ring = Qs + rows * ld;  // [2][K, V][BK][ld]
+  const int qtiles = (T_ + rows - 1) / rows;
+  const int chunk = blockIdx.x % chunks;
+  const int pair = blockIdx.x / chunks / qtiles;
+  const int q0 = (blockIdx.x / chunks - pair * qtiles) * rows;
+  const int b = pair / H, h = pair - b * H;
+  const size_t W3 = (size_t)3 * H * ch;
   const float* base = qkv + (size_t)b * T_ * W3 + (size_t)h * 3 * ch;
-  const int q0 = blockIdx.x * kGenRows;
-  const int r = threadIdx.x / kGenLanes, sl = threadIdx.x % kGenLanes;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int wr = warp % groups, wk = warp / groups;  // row group, key split
+  const bool vec = ch % 4 == 0;  // rows on 16-byte boundaries
+  // this block's key tiles: chunk `chunk` of `chunks` equal shares
+  const int all_tiles = (T_ + BK - 1) / BK;
+  const int t_lo = chunk * all_tiles / chunks, t_hi = (chunk + 1) * all_tiles / chunks;
 
-  for (int i = threadIdx.x; i < kGenRows * ch; i += kGenThreads) {
-    const int rr = i / ch, c = i % ch, row = q0 + rr;
-    Qs[rr * ld + c] = row < T_ ? base[(size_t)row * W3 + c] : 0.f;
+  // tile t of K and V into slot (t - t_lo) % 2; zeros past T (and past ch)
+  auto load = [&](int t) {
+    float* Kt = ring + ((t - t_lo) & 1) * 2 * BK * ld;
+    float* Vt = Kt + BK * ld;
+    const int k0 = t * BK;
+    if (vec) {
+      const int c4 = ch / 4;
+      for (int i = threadIdx.x; i < BK * c4; i += blockDim.x) {
+        const int r = i / c4, c = 4 * (i - r * c4), key = k0 + r;
+        const bool ok = key < T_;
+        const float* src = base + (size_t)(ok ? key : 0) * W3 + c;
+        cp_async16(Kt + r * ld + c, src + ch, ok ? 16 : 0);
+        cp_async16(Vt + r * ld + c, src + 2 * ch, ok ? 16 : 0);
+      }
+      cp_async_commit();
+    } else {
+      for (int i = threadIdx.x; i < BK * CW; i += blockDim.x) {
+        const int r = i / CW, c = i % CW, key = k0 + r;
+        const bool ok = key < T_ && c < ch;
+        const float* src = base + (ok ? (size_t)key * W3 + c : 0);
+        Kt[r * ld + c] = ok ? src[ch] : 0.f;
+        Vt[r * ld + c] = ok ? src[2 * ch] : 0.f;
+      }
+    }
+  };
+  // Q (in tile t_lo's copy group), zeros past T and ch
+  if (vec) {
+    const int c4 = ch / 4;
+    for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+      const int r = i / c4, c = 4 * (i - r * c4), row = q0 + r;
+      const bool ok = row < T_;
+      cp_async16(Qs + r * ld + c, base + (size_t)(ok ? row : 0) * W3 + c, ok ? 16 : 0);
+    }
+    // the columns from ch to CW that the copies never write
+    if (CW > ch) {
+      const int pad = CW - ch;
+      for (int i = threadIdx.x; i < (rows + 4 * BK) * pad; i += blockDim.x)
+        Qs[(i / pad) * ld + ch + i % pad] = 0.f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * CW; i += blockDim.x) {
+      const int r = i / CW, c = i % CW, row = q0 + r;
+      Qs[r * ld + c] = row < T_ && c < ch ? base[(size_t)row * W3 + c] : 0.f;
+    }
+  }
+  load(t_lo);
+
+  float o[MT][NO][4];
+  // running max (log2 units) and this thread's share of the sum, rows g and
+  // g + 8 of each m-tile
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  const float* qa = Qs + (wr * GR + g) * ld + t4;
+  const int kw = wk * kAnyWarpKeys;  // this warp's first key of a tile
+
+#pragma unroll 1
+  for (int t = t_lo; t < t_hi; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + 1 < t_hi) load(t + 1);  // into tile t - 1's slot
+    const float* Kt = ring + ((t - t_lo) & 1) * 2 * BK * ld + kw * ld;
+    const float* Vt = Kt + BK * ld;
+
+    // S = Q K^T: hi.hi, hi.lo and lo.hi in NA accumulators (three where a
+    // warp has one m-tile, so that a k-step's products are independent)
+    float sa[NA][MT][NT][4];
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sa[a][mt][j][e] = 0.f;
+    const float* kb = Kt + g * ld + t4;
+#pragma unroll 4
+    for (int kk = 0; kk < NO; ++kk) {
+      const int c = 8 * kk;
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* q = qa + 16 * mt * ld + c;
+        split_tf32(q[0], ah[mt][0], al[mt][0]);
+        split_tf32(q[8 * ld], ah[mt][1], al[mt][1]);
+        split_tf32(q[4], ah[mt][2], al[mt][2]);
+        split_tf32(q[8 * ld + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kb[8 * j * ld + c], bh0, bl0);
+        split_tf32(kb[8 * j * ld + c + 4], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_tf32(sa[NA - 1][mt][j], al[mt], bh0, bh1);
+          mma_tf32(sa[NA == 3 ? 1 : 0][mt][j], ah[mt], bl0, bl1);
+          mma_tf32(sa[0][mt][j], ah[mt], bh0, bh1);
+        }
+      }
+    }
+
+    const int k0 = t * BK + kw;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // online softmax on the fragments: s[j][0..1] row g, [2..3] row g + 8,
+      // keys kw + 8j + 2t4 (+1) of the tile
+      // (log2 units: times log2(e) / sqrt(ch))
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = (NA == 3 ? sa[0][mt][j][e] + (sa[1][mt][j][e] + sa[NA - 1][mt][j][e])
+                             : sa[0][mt][j][e]) * scale_log2;
+      if (k0 + kAnyWarpKeys > T_) {  // the ragged last tile: keys at or past T drop out
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t4 + (e & 1) >= T_) s[j][e] = -INFINITY;
+      }
+      float mx0 = m[mt][0], mx1 = m[mt][1];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // a warp whose keys so far all lie past T keeps m = -inf and zero
+      // weights; ex2(-inf) = 0
+      const float ms0 = mx0 == -INFINITY ? 0.f : mx0, ms1 = mx1 == -INFINITY ? 0.f : mx1;
+      const float c0 = ex2(m[mt][0] - ms0), c1 = ex2(m[mt][1] - ms1);
+      m[mt][0] = mx0;
+      m[mt][1] = mx1;
+      l[mt][0] *= c0;
+      l[mt][1] *= c1;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[mt][n][0] *= c0;
+        o[mt][n][1] *= c0;
+        o[mt][n][2] *= c1;
+        o[mt][n][3] *= c1;
+      }
+      // P, split, back into sa's registers: rows g, g + 8 of keys 2t4, 2t4 + 1
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float p0 = ex2(s[j][0] - ms0), p1 = ex2(s[j][1] - ms0);
+        const float p2 = ex2(s[j][2] - ms1), p3 = ex2(s[j][3] - ms1);
+        l[mt][0] += p0 + p1;
+        l[mt][1] += p2 + p3;
+        sa[0][mt][j][0] = p0;
+        sa[0][mt][j][1] = p2;
+        sa[0][mt][j][2] = p1;
+        sa[0][mt][j][3] = p3;
+      }
+    }
+
+    // O += P V: the A fragment's k index t4 stands for key 2t4, t4 + 4 for
+    // key 2t4 + 1
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(sa[0][mt][j][e], ah[mt][e], al[mt][e]);
+      const float* v0 = Vt + (8 * j + 2 * t4) * ld + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(v0[8 * n], bh0, bl0);
+        split_tf32(v0[ld + 8 * n], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(o[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+      }
+    }
   }
 
-  float acc[NU];
 #pragma unroll
-  for (int u = 0; u < NU; ++u) acc[u] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const float* qr = Qs + r * ld;
-  float* pr = Ps + r * (kGenKeys + 1);
-  const int ntiles = (T_ + kGenKeys - 1) / kGenKeys;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kGenKeys;
-    __syncthreads();  // the last tile is consumed (and Q is stored)
-    for (int i = threadIdx.x; i < kGenKeys * ch; i += kGenThreads) {
-      const int j = i / ch, c = i % ch, key = k0 + j;
-      const float* src = base + (size_t)(key < T_ ? key : 0) * W3 + c;
-      Ks[j * ld + c] = key < T_ ? src[ch] : 0.f;
-      Vs[j * ld + c] = key < T_ ? src[2 * ch] : 0.f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+    }
+  if (splits > 1) {
+    // the key-split warps hand (m, l, O) to the group's first warp, lane by
+    // lane: slot [(wk - 1) * groups + wr][MT][4 + 4 NO][32]
+    constexpr int part = 32 * (4 + 4 * NO), slot = MT * part;
+    __syncthreads();  // every warp is done with the tiles
+    if (wk > 0) {
+      float* x0 = fsm + (size_t)((wk - 1) * groups + wr) * slot + lane;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float* x = x0 + mt * part;
+        x[0] = m[mt][0];
+        x[32] = m[mt][1];
+        x[64] = l[mt][0];
+        x[96] = l[mt][1];
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[32 * (4 + 4 * n + e)] = o[mt][n][e];
+      }
     }
     __syncthreads();
-
-    float s[kGenKeys / kGenLanes];
+    if (wk > 0) return;
+    for (int k = 1; k < splits; ++k) {
+      const float* x0 = fsm + (size_t)((k - 1) * groups + wr) * slot + lane;
 #pragma unroll
-    for (int i = 0; i < kGenKeys / kGenLanes; ++i) s[i] = 0.f;
-    for (int c = 0; c < ch; ++c) {
-      const float qv = qr[c];
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* x = x0 + mt * part;
+        // the first warp's keys of the block's first tile lie below T, so
+        // its maxima are finite
+        const float n0 = fmaxf(m[mt][0], x[0]), n1 = fmaxf(m[mt][1], x[32]);
+        const float a0 = ex2(m[mt][0] - n0), b0 = ex2(x[0] - n0);
+        const float a1 = ex2(m[mt][1] - n1), b1 = ex2(x[32] - n1);
+        m[mt][0] = n0;
+        m[mt][1] = n1;
+        l[mt][0] = l[mt][0] * a0 + x[64] * b0;
+        l[mt][1] = l[mt][1] * a1 + x[96] * b1;
 #pragma unroll
-      for (int i = 0; i < kGenKeys / kGenLanes; ++i)
-        s[i] = fmaf(qv, Ks[(sl + kGenLanes * i) * ld + c], s[i]);
-    }
-    float mx = m;
-#pragma unroll
-    for (int i = 0; i < kGenKeys / kGenLanes; ++i) {
-      s[i] = k0 + sl + kGenLanes * i < T_ ? s[i] * scale_log2 : -INFINITY;
-      mx = fmaxf(mx, s[i]);
-    }
-#pragma unroll
-    for (int off = 1; off < kGenLanes; off *= 2)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    // every tile holds a key below T, so mx is finite; exp2f(-inf) = 0
-    const float corr = exp2f(m - mx);
-    m = mx;
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kGenKeys / kGenLanes; ++i) {
-      const float p = exp2f(s[i] - mx);
-      psum += p;
-      pr[sl + kGenLanes * i] = p;
-    }
-#pragma unroll
-    for (int off = 1; off < kGenLanes; off *= 2)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = l * corr + psum;
-    __syncwarp();  // the row's weights come from lanes of this warp
-#pragma unroll
-    for (int u = 0; u < NU; ++u) acc[u] *= corr;
-    for (int j = 0; j < kGenKeys; ++j) {
-      const float p = pr[j];
-      const float* vr = Vs + j * ld + sl;
-#pragma unroll
-      for (int u = 0; u < NU; ++u)
-        if (sl + kGenLanes * u < ch) acc[u] = fmaf(p, vr[kGenLanes * u], acc[u]);
+        for (int n = 0; n < NO; ++n) {
+          o[mt][n][0] = o[mt][n][0] * a0 + x[32 * (4 + 4 * n)] * b0;
+          o[mt][n][1] = o[mt][n][1] * a0 + x[32 * (5 + 4 * n)] * b0;
+          o[mt][n][2] = o[mt][n][2] * a1 + x[32 * (6 + 4 * n)] * b1;
+          o[mt][n][3] = o[mt][n][3] * a1 + x[32 * (7 + 4 * n)] * b1;
+        }
+      }
     }
   }
-
-  const int row = q0 + r;
-  if (row < T_) {
-    const float inv = 1.f / l;
-    float* o = out + ((size_t)b * T_ + row) * (H * ch) + (size_t)h * ch + sl;
+  if (chunks > 1) {
+    // a share of the keys: O unnormalised and (m, l) of each row, for
+    // attn_f32_any_merge: part holds O as [pair][row][chunk][ch], then
+    // (m, l) as [pair][row][chunk][2]
+    const size_t entries = (size_t)(gridDim.x / (chunks * qtiles)) * T_ * chunks;
+    float* pml = part + entries * ch;
 #pragma unroll
-    for (int u = 0; u < NU; ++u)
-      if (sl + kGenLanes * u < ch) o[kGenLanes * u] = acc[u] * inv;
+    for (int mt = 0; mt < MT; ++mt) {
+      const int ra = q0 + wr * GR + 16 * mt + g, rb = ra + 8;
+      const size_t ea = ((size_t)pair * T_ + ra) * chunks + chunk, eb = ea + 8 * (size_t)chunks;
+      if (t4 == 0 && ra < T_) {
+        pml[2 * ea] = m[mt][0];
+        pml[2 * ea + 1] = l[mt][0];
+      }
+      if (t4 == 0 && rb < T_) {
+        pml[2 * eb] = m[mt][1];
+        pml[2 * eb + 1] = l[mt][1];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int c = 8 * n + 2 * t4;
+        if (c < ch && ra < T_) part[ea * ch + c] = o[mt][n][0];
+        if (c + 1 < ch && ra < T_) part[ea * ch + c + 1] = o[mt][n][1];
+        if (c < ch && rb < T_) part[eb * ch + c] = o[mt][n][2];
+        if (c + 1 < ch && rb < T_) part[eb * ch + c + 1] = o[mt][n][3];
+      }
+    }
+    return;
+  }
+  const size_t C = (size_t)H * ch;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float i0 = 1.f / l[mt][0], i1 = 1.f / l[mt][1];
+    const int ra = q0 + wr * GR + 16 * mt + g, rb = ra + 8;
+    float* oa = out + ((size_t)b * T_ + ra) * C + (size_t)h * ch;
+    float* obr = oa + 8 * C;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * t4;
+      if (c < ch && ra < T_) oa[c] = o[mt][n][0] * i0;
+      if (c + 1 < ch && ra < T_) oa[c + 1] = o[mt][n][1] * i0;
+      if (c < ch && rb < T_) obr[c] = o[mt][n][2] * i1;
+      if (c + 1 < ch && rb < T_) obr[c + 1] = o[mt][n][3] * i1;
+    }
+  }
+}
+
+// The output of attn_f32_any from the partial sums of its key chunks: a
+// block a (pair, row), its threads over the channels, each merging the
+// chunks in chunk order, so reruns are bit-identical.  Only small grids are
+// chunked, so every index fits an int.
+__global__ void __launch_bounds__(128)
+attn_f32_any_merge(const float* __restrict__ part, float* __restrict__ out, int pairs, int T_,
+                   int H, int ch, int chunks) {
+  const int pr = blockIdx.x, e0 = pr * chunks;  // pair * T + row; its first chunk
+  const float* pml = part + pairs * T_ * chunks * ch;
+  // every chunk holds a key below T for every row, so each m is finite
+  float mx = pml[2 * e0];
+  for (int k = 1; k < chunks; ++k) mx = fmaxf(mx, pml[2 * (e0 + k)]);
+  float sum = 0.f;
+  for (int k = 0; k < chunks; ++k) sum += ex2(pml[2 * (e0 + k)] - mx) * pml[2 * (e0 + k) + 1];
+  const float inv = 1.f / sum;
+  const int pair = pr / T_, row = pr - pair * T_, b = pair / H, h = pair - b * H;
+  float* o = out + ((size_t)(b * T_ + row) * H + h) * ch;
+  for (int c = threadIdx.x; c < ch; c += blockDim.x) {
+    float acc = 0.f;
+    for (int k = 0; k < chunks; ++k)
+      acc += ex2(pml[2 * (e0 + k)] - mx) * part[(size_t)(e0 + k) * ch + c];
+    o[c] = acc * inv;
   }
 }
 
@@ -974,30 +1314,53 @@ cudaError_t launch_wide(const void* qkv, void* out, int B, int T_, int H, int ch
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_any(Kernel kernel, int rows, int threads, size_t smem, const void* qkv,
-                       void* out, int B, int T_, int H, int ch, cudaStream_t st) {
+template <int NO>
+cudaError_t launch_f32_any_n(const void* qkv, void* out, void* part, int B, int T_, int H,
+                             int ch, int rows, int splits, int chunks, cudaStream_t st) {
+  constexpr int MT = f32_any_mtiles(NO);
+  const auto kernel = attn_f32_any<NO, MT>;
+  const size_t smem = f32_any_smem(ch, rows, splits);
+  unsigned blocks;
+  cudaError_t e = sliced_grid(B, T_, H, rows, chunks, &blocks);
+  if (e != cudaSuccess) return e;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((T_ + rows - 1) / rows, B * H);
-  kernel<<<grid, threads, smem, st>>>(static_cast<const float*>(qkv), static_cast<float*>(out),
-                                      T_, H, ch, kLog2e / sqrtf((float)ch));
+  kernel<<<blocks, 2 * rows * splits / MT, smem, st>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(part), T_,
+      H, ch, rows, chunks, kLog2e / sqrtf((float)ch));
+  if (chunks == 1) return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_f32_any_merge<<<B * H * T_, 128, 0, st>>>(static_cast<const float*>(part),
+                                                  static_cast<float*>(out), B * H, T_, H, ch,
+                                                  chunks);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32_any(const void* qkv, void* out, int B, int T_, int H, int ch,
-                           cudaStream_t st) {
-  const size_t smem = generic_smem(ch);
-#define DIFFPIR_F32_ANY(NU) \
-  return launch_any(attn_f32_any<NU>, kGenRows, kGenThreads, smem, qkv, out, B, T_, H, ch, st)
-  if (ch <= 32) DIFFPIR_F32_ANY(4);
-  if (ch <= 64) DIFFPIR_F32_ANY(8);
-  if (ch <= 128) DIFFPIR_F32_ANY(16);
-  DIFFPIR_F32_ANY(32);
+cudaError_t launch_f32_any(const void* qkv, void* out, void* part, int B, int T_, int H, int ch,
+                           int rows, int splits, int chunks, cudaStream_t st) {
+  switch (f32_any_tiles(ch)) {
+#define DIFFPIR_F32_ANY(NO) \
+  case NO:                  \
+    return launch_f32_any_n<NO>(qkv, out, part, B, T_, H, ch, rows, splits, chunks, st)
+    DIFFPIR_F32_ANY(1);
+    DIFFPIR_F32_ANY(2);
+    DIFFPIR_F32_ANY(3);
+    DIFFPIR_F32_ANY(4);
+    DIFFPIR_F32_ANY(6);
+    DIFFPIR_F32_ANY(8);
+    DIFFPIR_F32_ANY(10);
+    DIFFPIR_F32_ANY(12);
+    DIFFPIR_F32_ANY(16);
+    DIFFPIR_F32_ANY(20);
+    DIFFPIR_F32_ANY(24);
+    DIFFPIR_F32_ANY(32);
 #undef DIFFPIR_F32_ANY
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int CH>
@@ -1030,10 +1393,10 @@ cudaError_t launch(const void* qkv, void* out, int B, int T_, int H, int rows,
   return cudaGetLastError();
 }
 
-// The tuned kernels and attn_f32_any take (batch, head) pairs on grid y, at
-// most 65535 of them: more pairs run as several launches over whole samples.
+// The tuned kernels take (batch, head) pairs on grid y, at most 65535 of
+// them: more pairs run as several launches over whole samples.
 cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int ch, int rows,
-                         bool bf16, bool tuned, cudaStream_t st) {
+                         bool bf16, cudaStream_t st) {
   const size_t esize = bf16 ? 2 : 4;
   const int per = 65535 / H;  // samples per launch
   for (int b0 = 0; b0 < B; b0 += per) {
@@ -1041,8 +1404,7 @@ cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int c
     const void* q = static_cast<const char*>(qkv) + (size_t)b0 * T_ * 3 * H * ch * esize;
     void* o = static_cast<char*>(out) + (size_t)b0 * T_ * H * ch * esize;
     cudaError_t e;
-    if (!tuned) e = launch_f32_any(q, o, nb, T_, H, ch, st);
-    else if (ch == 16) e = launch<16>(q, o, nb, T_, H, rows, bf16, st);
+    if (ch == 16) e = launch<16>(q, o, nb, T_, H, rows, bf16, st);
     else if (ch == 32) e = launch<32>(q, o, nb, T_, H, rows, bf16, st);
     else e = launch<64>(q, o, nb, T_, H, rows, bf16, st);
     if (e != cudaSuccess) return e;
@@ -1057,12 +1419,17 @@ cudaError_t launch_pairs(const void* qkv, void* out, int B, int T_, int H, int c
 // rows per block, 16, 32, 64 or, in bf16, 128), 1 attn_bf16_any (bf16, any
 // ch and heads; rows 64 or 128, one or two warpgroups; slice_ch output
 // channels per block, 32, 64, 96, 128, 192 or 256), 2 attn_f32_any (fp32,
-// ch up to 256, at most 65535 heads), 3 attn_wide (fp32, any ch and heads;
+// ch up to 256, any heads; rows a multiple of a row group, 32 query rows
+// up to 128 channels and 16 beyond, key_splits warps a row group, at most 8
+// warps; kv_chunks blocks a query tile, each a share of the key tiles, their
+// partial sums in workspace, B * heads * T * kv_chunks * (ch + 2) floats,
+// where kv_chunks > 1), 3 attn_wide (fp32, any ch and heads;
 // slice_ch a multiple of 64 up to 512).  qkv and out must be 16-byte
 // aligned.
-extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B, int T,
-                                            int heads, int ch, int variant, int rows,
-                                            int slice_ch, int is_bf16, void* stream) {
+extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, void* workspace, int B,
+                                            int T, int heads, int ch, int variant, int rows,
+                                            int slice_ch, int key_splits, int kv_chunks,
+                                            int is_bf16, void* stream) {
   if (B <= 0 || T <= 0 || heads <= 0 || ch <= 0 ||
       (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
@@ -1072,13 +1439,22 @@ extern "C" int diffpir_legacy_qkv_attention(const void* qkv, void* out, int B, i
       if ((ch != 16 && ch != 32 && ch != 64) || heads > 65535 ||
           (rows != 16 && rows != 32 && rows != 64 && !(is_bf16 && rows == 128)))
         return (int)cudaErrorInvalidValue;
-      return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, is_bf16, true, st);
+      return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, is_bf16, st);
     case 1:
       if (!is_bf16 || (rows != 64 && rows != 128)) return (int)cudaErrorInvalidValue;
       return (int)diffpir_attn_bf16_any(qkv, out, B, T, heads, ch, rows, slice_ch, st);
     case 2:
-      if (is_bf16 || ch > kGenMaxCh || heads > 65535) return (int)cudaErrorInvalidValue;
-      return (int)launch_pairs(qkv, out, B, T, heads, ch, rows, false, false, st);
+      if (is_bf16 || ch > kAnyMaxCh || kv_chunks <= 0 ||
+          (kv_chunks > 1 && (workspace == nullptr ||
+                             (long long)B * heads * T * kv_chunks * (ch + 2) > 0x7fffffffLL)))
+        return (int)cudaErrorInvalidValue;
+      if (const int mt = f32_any_mtiles(f32_any_tiles(ch));
+          rows <= 0 || rows % (16 * mt) || key_splits <= 0 || rows * key_splits > 128 * mt ||
+          f32_any_smem(ch, rows, key_splits) > kMaxDynSmem ||
+          kv_chunks > (T + kAnyWarpKeys * key_splits - 1) / (kAnyWarpKeys * key_splits))
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_f32_any(qkv, out, workspace, B, T, heads, ch, rows, key_splits,
+                                 kv_chunks, st);
     case 3:
       if (is_bf16 || slice_ch <= 0 || slice_ch % 64 || slice_ch > 512)
         return (int)cudaErrorInvalidValue;

@@ -118,16 +118,19 @@ def test_wide_heads_plain_matches_xla_and_pallas(b, t, heads, ch):
 
 
 # (dtype, ch, heads) on either side of each boundary between the variants:
-# the tuned widths, attn_f32_any's 256 channels, grid y's 65535 heads
+# the tuned widths, attn_f32_any's 256 channels, the tuned kernels' grid y
+# of 65535 heads (attn_f32_any puts its pairs on grid x, so it takes any
+# head count, the tuned widths' past 65535 in fp32 too)
 VARIANT_BOUNDARIES = [
     (True, 64, 1, "tuned"), (True, 65, 1, "bf16_any"),
     (False, 64, 1, "tuned"), (False, 65, 1, "f32_any"),
     (True, 256, 1, "bf16_any"), (True, 257, 1, "bf16_any"),
     (False, 256, 1, "f32_any"), (False, 257, 1, "f32_wide"),
     (True, 32, 65535, "tuned"), (True, 32, 65536, "bf16_any"),
-    (False, 32, 65535, "tuned"), (False, 32, 65536, "f32_wide"),
+    (False, 32, 65535, "tuned"), (False, 32, 65536, "f32_any"),
     (True, 96, 65535, "bf16_any"), (True, 96, 65536, "bf16_any"),
-    (False, 96, 65535, "f32_any"), (False, 96, 65536, "f32_wide")]
+    (False, 96, 65535, "f32_any"), (False, 96, 65536, "f32_any"),
+    (False, 256, 65536, "f32_any"), (False, 257, 65536, "f32_wide")]
 
 
 @pytest.mark.parametrize("is_bf16,ch,heads,variant", VARIANT_BOUNDARIES)
@@ -142,6 +145,11 @@ def test_attention_variant_at_each_boundary(is_bf16, ch, heads, variant):
     elif variant == "bf16_any":
         assert plan.rows in tattn.BF16_ANY_ROWS
         assert plan.slice_ch in tattn.BF16_SLICE_CHANNELS
+    elif variant == "f32_any":
+        groups = plan.rows // tattn.f32_any_group_rows(ch)
+        assert ((groups, plan.key_splits) in tattn.F32_ANY_SHAPES
+                or (groups, plan.key_splits) == tattn.F32_ANY_NARROW)
+        assert plan.slice_ch == ch and plan.slices == 1
     else:
         assert plan.rows == tattn.VARIANT_ROWS[variant]
 
@@ -168,3 +176,47 @@ def test_sliced_kernels_cover_the_head_within_grid_limits(b, t, heads):
             assert ch <= tattn.BF16_ANY_TWO_WG_MAX_CH
     with pytest.raises(ValueError, match="more than a grid holds"):
         tattn.attention_plan(1 << 22, 1 << 16, 1, 320, True)
+
+
+@pytest.mark.parametrize("b,t,heads", [(1, 1, 1), (4, 4096, 2), (40000, 3, 2)])
+@pytest.mark.parametrize("ch", [1, 96, 256])
+def test_f32_any_grid_covers_pairs_and_query_tiles(b, t, heads, ch):
+    """attn_f32_any puts (pair, query tile, key chunk) on grid x: one block
+    for each, within grid x, each of eight warps (row groups of 32 or 16
+    query rows times warps splitting the keys; four above 128 channels where
+    eight would leave half the SMs idle) and within a block's shared memory;
+    the most rows whose grid still gives every SM a block, else the
+    fewest."""
+    gr = tattn.f32_any_group_rows(ch)
+    assert gr == (32 if ch <= 128 else 16)
+    for num_sms in (132, 114, 1):
+        plan = tattn.attention_plan(b, t, heads, ch, False, num_sms)
+        assert plan.variant == "f32_any"
+        groups, splits = plan.rows // gr, plan.key_splits
+        assert groups * gr == plan.rows
+        if (groups, splits) == tattn.F32_ANY_NARROW:
+            # four warps: one m-tile a warp, and eight would idle half the SMs
+            assert gr == 16
+            assert all(2 * b * heads * -(-t // (gr * g)) <= num_sms
+                       for g, k in tattn.F32_ANY_SHAPES
+                       if tattn.f32_any_smem(ch, gr * g, k) <= tattn.MAX_SMEM)
+        else:
+            assert (groups, splits) in tattn.F32_ANY_SHAPES
+        assert plan.slice_ch == ch and plan.slices == 1
+        tiles = -(-t // plan.rows)
+        assert tiles * plan.rows >= t > (tiles - 1) * plan.rows
+        # the keys in chunks, a block each, only where the grid would leave
+        # half the SMs idle and the keys span a few tiles, each chunk at
+        # least one key tile
+        key_tiles = -(-t // (tattn.F32_ANY_WARP_KEYS * splits))
+        assert 1 <= plan.kv_chunks <= min(tattn.F32_ANY_MAX_CHUNKS, key_tiles)
+        if plan.kv_chunks > 1:
+            assert 2 * b * heads * tiles <= num_sms
+            assert key_tiles >= tattn.F32_ANY_CHUNK_MIN_TILES
+        assert plan.blocks == b * heads * tiles * plan.kv_chunks
+        assert 1 <= plan.blocks <= tattn.MAX_GRID_X
+        assert tattn.f32_any_smem(ch, plan.rows, splits) <= tattn.MAX_SMEM
+        if (groups, splits) != tattn.F32_ANY_NARROW:
+            more_rows = [gr * g for g, k in tattn.F32_ANY_SHAPES if gr * g > plan.rows
+                         and tattn.f32_any_smem(ch, gr * g, k) <= tattn.MAX_SMEM]
+            assert all(b * heads * -(-t // r) < num_sms for r in more_rows)
