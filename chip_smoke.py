@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [--package-root DIR]
-    python3 chip_smoke.py --only export,parallel
+    python3 chip_smoke.py --only export,parallel,formats
 
 Phases, each announced by a flushed ``phase <name> start`` line and closed by
 ``phase <name> done <seconds>s``:
@@ -53,6 +53,16 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              configs/demo64_inpaint.yaml (trained demo64_hq prior, fp32, 4
              images, 50 NFE): PSNR against the JAX package's, launch counts,
              and the same restore with the plain versions
+  formats    image decoding without Pillow: every file of
+             testsets/demo64_formats (the demo64 images as baseline,
+             progressive and gray JPEG, palette, 16-bit and interlaced PNG,
+             BMP, PPM, GIF and LZW TIFF, and a 500x375 4:2:0 JPEG) decoded by
+             diffpir_tpu_torch/utils/imageio.py to RGB and gray, each equal
+             to the sha256 of Pillow's conversion committed in digests.json;
+             the 500x375 JPEG's host decode ms (median of 5); the demo64
+             inpaint CLI on the baseline JPEG test set at FORMATS_ITER steps,
+             within PSNR_TOL_DB of the JAX package's CPU PSNR of the same run,
+             with its launch counts
   tasks      the CLI on each path of TASK_RUNS: demo64 deblur (Levin09
              k0, and a DIY motion PSF per image), demo64 SR x2 in the blur, classical and cubic modes, demo32
              inpaint (heads of 16), and the 54M trained prior's demo256
@@ -120,7 +130,7 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              kernels, and come within EXPORT_PSNR_TOL_DB of its PSNR (bit for
              bit is expected; the largest difference is printed), ms per NFE
              of bundle and live in turns with the main thread's CPU and
-             system time; then, started
+             system time, and their ratio (logged, no bar); then, started
              together once the sidecar is written (LoadedRestore.save_aot), two
              fresh ``python -c`` processes that load it, run it and print
              boot_timings with no model, sampler or runner module imported, one
@@ -136,16 +146,7 @@ Phases, each announced by a flushed ``phase <name> start`` line and closed by
              bf16, b4, 256 px, 4 NFE) as demo256 inpaint and as a DPS_y0 deblur
              bundle (its step program one backward node per kernel node), with
              the export's seconds, the program's size, and for DPS_y0 ms per
-             NFE of bundle and live in turns and the peak memory.  Where the
-             demo256 bundle runs more than 1.25x the live runner's ms per NFE
-             (ROADMAP C6), the C6 probes (c6_probes: threads against a fresh
-             process's, CPU and system time, faults, context switches and
-             garbage collections per call, the bundle with the collector off,
-             at a short switch interval and reloaded, the frames of every
-             thread, GroupNorm's operator implementation against its
-             wrapper), one bundle call's cProfile, the caching allocator's
-             traffic and torch.profiler tables of a bundle and a live call
-             are logged
+             NFE of bundle and live in turns and the peak memory
   train      the training path (diffpir_tpu_torch.train): the DEMO256 recipe
              (scripts/train_demo.py --arch hq256 --batch 16 --lr 1e-4,
              resumed from the 54M prior, bf16 compute with fp32 masters,
@@ -215,7 +216,7 @@ power limit, and ``{"ok": true, "device": {...}}``.  Nothing is written
 outside ``.kernel_build/`` and temporary directories that are removed.
 
 ``--kernels-only`` stops after phase ``kernels`` and prints the per-forward
-sums as JSON (no result line); ``--only export,parallel`` runs those phases
+sums as JSON (no result line); ``--only export,parallel,formats`` runs those phases
 after ``build`` alone (no result line); ``--package-root DIR`` takes the port's
 package, and its kernels, from the checkout at DIR (for example an unpacked
 parent commit), so that two versions can be timed on one card in turns.
@@ -244,6 +245,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # The two packages draw different noise, so the port is held to within
 # PSNR_TOL_DB of it, not to equality.
 JAX_DEMO64_PSNR = 45.42825711745008
+# Phase formats: the demo64 inpaint CLI on the baseline JPEG copies of the
+# demo64 images (testsets/demo64_formats, written by
+# scripts/make_format_fixtures.py) at FORMATS_ITER steps; the JAX package's
+# CPU PSNR of that run:
+#   python main_ddpir.py --opt configs/demo64_inpaint.yaml --cpu --no-sweep
+#     --no-compile-cache --set save_E=false --set save_L=false
+#     --set testset_name=demo64_formats/jpeg_420 --set iter_num=10 --json
+FORMATS_TESTSET = "demo64_formats/jpeg_420"
+FORMATS_ITER = 10
+FORMATS_BIG_JPEG = "imagenet_size/synth0_500x375.jpg"
+JAX_FORMATS_PSNR = 35.96594337523153
 PSNR_TOL_DB = 0.5
 PLAIN_PSNR_TOL_DB = 0.05
 
@@ -969,7 +981,8 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
     from diffpir_tpu_torch.serve import RestorationService
     from diffpir_tpu_torch.server_http import start_server
     from diffpir_tpu_torch.utils import image as im
-    from diffpir_tpu_torch.utils.png import decode_png, encode_png
+    from diffpir_tpu_torch.utils.imageio import decode_image
+    from diffpir_tpu_torch.utils.png import encode_png
 
     out = {}
     over = {"save_E": False, "save_L": False}
@@ -1131,7 +1144,7 @@ def serve_phase(dev, gen, calls256, cli_ms_nfe: float, per_fwd) -> dict:
             raise AssertionError(f"a non-binary mask got {code} {body[:200]!r}")
         png = encode_png(items[1]["img_H"][:250, :240])
         code, ctype, body = http_post(opener, url + "/restore", png, "image/png")
-        shape = decode_png(body).shape if code == 200 and ctype == "image/png" else None
+        shape = decode_image(body).shape if code == 200 and ctype == "image/png" else None
         if shape != (250, 240, 3):
             raise AssertionError(f"PNG request: {code} {ctype} shape {shape}")
         log(f"serve: non-binary mask -> 400; then a 250x240 PNG -> 200, a PNG of {shape}")
@@ -2014,189 +2027,6 @@ def finish_fresh_boot(started) -> dict:
     return res
 
 
-FRESH_PROBE = """
-import json, os, threading, torch
-torch.zeros(1, device="cuda")
-print(json.dumps(dict(os_threads=len(os.listdir("/proc/self/task")),
-                      python_threads=len(threading.enumerate()),
-                      torch_threads=torch.get_num_threads(),
-                      interop_threads=torch.get_num_interop_threads(),
-                      affinity=len(os.sched_getaffinity(0)))))
-"""
-
-
-def c6_probes(loaded, runner, batch, seed: int, nfe: int) -> dict:
-    """Where a loaded bundle's host time goes inside this process (ROADMAP
-    C6): the threads (Python, OS, torch's pools) against a fresh process's;
-    per call of the bundle and of the live runner (timed between CUDA
-    events as the turns are, then without), ms per NFE of wall time, of the
-    main thread's CPU time (user, system) and of the process's, the main
-    thread's page faults and context switches, and the garbage collector's
-    collections and seconds; the bundle with the collector off
-    and at a switch interval of 1e-4 s; the other threads' frames sampled
-    every 10 ms during a bundle call; and GroupNorm's operator
-    implementation against its wrapper, 200 calls each, in turns."""
-    import gc
-    import resource
-    import threading
-
-    import torch
-
-    from diffpir_tpu_torch.kernels._common import OP_IMPLS
-    from diffpir_tpu_torch.kernels.groupnorm import groupnorm_silu
-
-    calls = {"bundle": lambda: loaded(batch.img_L, mask=batch.mask, seed=seed),
-             "live": lambda: runner.restore_batch(batch, seed=seed)}
-    clock = [0.0, 0, 0.0]
-
-    def on_gc(what, info):
-        if what == "start":
-            clock[2] = time.perf_counter()
-        else:
-            clock[0] += time.perf_counter() - clock[2]
-            clock[1] += 1
-
-    def measure(fn) -> dict:
-        torch.cuda.synchronize()
-        clock[:2] = [0.0, 0]
-        ru0 = resource.getrusage(resource.RUSAGE_THREAD)
-        t0, c0, p0 = time.perf_counter(), time.thread_time(), time.process_time()
-        fn()
-        torch.cuda.synchronize()
-        t1, c1, p1 = time.perf_counter(), time.thread_time(), time.process_time()
-        ru1 = resource.getrusage(resource.RUSAGE_THREAD)
-        return dict(ms_per_nfe=(t1 - t0) * 1e3 / nfe,
-                    thread_cpu_ms_per_nfe=(c1 - c0) * 1e3 / nfe,
-                    process_cpu_ms_per_nfe=(p1 - p0) * 1e3 / nfe,
-                    user_ms_per_nfe=(ru1.ru_utime - ru0.ru_utime) * 1e3 / nfe,
-                    system_ms_per_nfe=(ru1.ru_stime - ru0.ru_stime) * 1e3 / nfe,
-                    minor_faults=ru1.ru_minflt - ru0.ru_minflt,
-                    voluntary_switches=ru1.ru_nvcsw - ru0.ru_nvcsw,
-                    involuntary_switches=ru1.ru_nivcsw - ru0.ru_nivcsw,
-                    gc_collections=clock[1], gc_s=clock[0])
-
-    res = {"threads": dict(
-        python=[t.name for t in threading.enumerate()], frames=len(sys._current_frames()),
-        os_threads=len(os.listdir("/proc/self/task")),
-        torch_threads=torch.get_num_threads(),
-        interop_threads=torch.get_num_interop_threads(),
-        affinity=len(os.sched_getaffinity(0)))}
-    res["gc"] = dict(objects=len(gc.get_objects()), counts=gc.get_count(),
-                     thresholds=gc.get_threshold(), frozen=gc.get_freeze_count())
-    def with_events(fn) -> dict:
-        # as the export phase's turns time a call: CUDA events around it
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0, c0 = time.perf_counter(), time.thread_time()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return dict(ms_per_nfe=(time.perf_counter() - t0) * 1e3 / nfe,
-                    thread_cpu_ms_per_nfe=(time.thread_time() - c0) * 1e3 / nfe,
-                    device_ms_per_nfe=start.elapsed_time(end) / nfe)
-
-    gc.callbacks.append(on_gc)
-    try:
-        # timed as the turns are, then as the probes are, in turns
-        for kind in ("bundle", "live"):
-            res.setdefault("events", []).append(dict(kind=kind, **with_events(calls[kind])))
-        for kind in ("bundle", "live"):
-            res.setdefault("sequence", []).append(dict(kind=kind, **measure(calls[kind])))
-        fresh = subprocess.run([sys.executable, "-c", FRESH_PROBE], capture_output=True,
-                               text=True, timeout=300)
-        res["fresh_process_threads"] = (json.loads(fresh.stdout.strip().splitlines()[-1])
-                                        if fresh.returncode == 0 else fresh.stderr[-500:])
-        for kind in ("bundle", "live"):
-            res.setdefault(kind, []).append(measure(calls[kind]))
-        gc.disable()
-        try:
-            res["bundle_gc_off"] = measure(calls["bundle"])
-        finally:
-            gc.enable()
-        interval = sys.getswitchinterval()
-        sys.setswitchinterval(1e-4)
-        try:
-            res["bundle_switch_1e-4"] = measure(calls["bundle"])
-        finally:
-            sys.setswitchinterval(interval)
-    finally:
-        gc.callbacks.remove(on_gc)
-    # the other threads' frames, every 10 ms of one bundle call
-    samples: collections.Counter = collections.Counter()
-    stop = threading.Event()
-    main = threading.get_ident()
-
-    main_samples: collections.Counter = collections.Counter()
-
-    def sample():
-        me = threading.get_ident()
-        while not stop.wait(0.01):
-            for tid, fr in sys._current_frames().items():
-                where = (f"{os.path.basename(fr.f_code.co_filename)}:{fr.f_lineno} "
-                         f"{fr.f_code.co_name}")
-                if tid == main:
-                    main_samples[where] += 1
-                elif tid != me:
-                    samples[f"{tid} {where}"] += 1
-
-    sampler = threading.Thread(target=sample, daemon=True)
-    sampler.start()
-    try:
-        res["bundle_sampled"] = measure(calls["bundle"])
-    finally:
-        stop.set()
-        sampler.join()
-    res["other_thread_samples"] = dict(samples.most_common(8))
-    res["main_thread_samples"] = dict(main_samples.most_common(12))
-    # a second LoadedRestore of the same bundle, loaded now
-    again = type(loaded)(loaded._path, device=loaded.device)
-    again(batch.img_L, mask=batch.mask, seed=seed)
-    res["reloaded"] = measure(lambda: again(batch.img_L, mask=batch.mask, seed=seed))
-    del again
-    # the host time of each step of one bundle call (no synchronisation in
-    # between), the slowest and fastest steps' share
-    step = loaded._programs["step"]
-    host_ms: list = []
-
-    class Timed:
-        def __call__(self, *flat):
-            t0 = time.perf_counter()
-            out = step(*flat)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-    loaded._programs["step"] = Timed()
-    try:
-        res["bundle_steps_timed"] = measure(calls["bundle"])
-    finally:
-        loaded._programs["step"] = step
-    host_ms.sort()
-    res["step_host_ms"] = dict(min=host_ms[0], median=host_ms[len(host_ms) // 2],
-                               max=host_ms[-1], n=len(host_ms))
-    # the GroupNorm kernel's operator implementation (what a bundle's node
-    # calls) against the eager wrapper, on the same tensors, in turns
-    dev = torch.device("cuda")
-    gx = torch.zeros((4, 64, 64, 128), device=dev, dtype=torch.bfloat16)
-    gs, gb = torch.ones(128, device=dev), torch.zeros(128, device=dev)
-    impl = OP_IMPLS[("groupnorm_silu", "CUDA")]
-    fns = {"op_impl": lambda: impl(gx, gs, gb, None, None, 32, 1e-5, True),
-           "wrapper": lambda: groupnorm_silu(gx, gs, gb)}
-    host_us: dict = {}
-    for kind in ("op_impl", "wrapper", "wrapper", "op_impl"):
-        for _ in range(5):
-            fns[kind]()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fns[kind]()
-        host_us.setdefault(kind, []).append((time.perf_counter() - t0) / 200 * 1e6)
-        torch.cuda.synchronize()
-    res["groupnorm_host_us_per_call"] = host_us
-    return res
-
-
 def export_phase(dev, root: str) -> dict:
     """Phase export (see the module docstring).  Returns what the record
     line and the log report."""
@@ -2333,6 +2163,14 @@ def export_phase(dev, root: str) -> dict:
             f"faults bundle {ms['bundle_minor_faults']} live {ms['live_minor_faults']}; "
             f"(voluntary, involuntary) switches bundle {ms['bundle_switches']} live "
             f"{ms['live_switches']}; OS threads {ms['bundle_os_threads']}")
+        # the bundle against the live runner (ROADMAP C6), fastest of two each:
+        # logged, no bar
+        rec["bundle_over_live"] = dict(
+            wall=min(ms["bundle"]) / min(ms["live"]),
+            device=min(ms["bundle_device"]) / min(ms["live_device"]))
+        log(f"export demo256_inpaint: bundle / live ms per NFE, wall "
+            f"{rec['bundle_over_live']['wall']:.4f}, between events "
+            f"{rec['bundle_over_live']['device']:.4f}")
         # the operator's host cost against the wrapper's, one GroupNorm call
         # of a DEMO256 shape, 200 back-to-back calls each
         from diffpir_tpu_torch.kernels.groupnorm import groupnorm_silu
@@ -2354,63 +2192,6 @@ def export_phase(dev, root: str) -> dict:
         rec["groupnorm_host_us_per_call"] = host_us
         log(f"export: groupnorm_silu host us per call, wrapper {host_us['wrapper']:.2f}, "
             f"operator {host_us['operator']:.2f}")
-        if min(ms["bundle"]) > 1.25 * min(ms["live"]):
-            rec["c6"] = c6_probes(loaded, runner, batch, cfg.seed, rec["nfe"])
-            log("export demo256_inpaint: C6 probes " + json.dumps(rec["c6"]))
-            # where a slow bundle's host time goes: one call under cProfile
-            import cProfile
-            import io as _io
-            import pstats
-
-            prof = cProfile.Profile()
-            prof.enable()
-            loaded(batch.img_L, mask=batch.mask, seed=cfg.seed)
-            prof.disable()
-            text = _io.StringIO()
-            pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(15)
-            import threading
-            import traceback as tb
-
-            others = {tid: "".join(tb.format_stack(fr))[-1200:]
-                      for tid, fr in sys._current_frames().items()
-                      if tid != threading.get_ident()}
-            log("export demo256_inpaint: the bundle is slower than the live runner; "
-                "cProfile of one call:\n" + text.getvalue() + f"\nother threads "
-                f"{[t.name for t in threading.enumerate()]}: {json.dumps(others)}")
-            # the caching allocator's traffic during one call of each
-            def alloc_stats(fn):
-                keys = ("num_alloc_retries", "num_device_alloc", "num_device_free",
-                        "num_sync_all_streams")
-                before = torch.cuda.memory_stats()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                after = torch.cuda.memory_stats()
-                return dict({k: after.get(k, 0) - before.get(k, 0) for k in keys},
-                            ms_per_nfe=(time.perf_counter() - t0) * 1e3 / rec["nfe"],
-                            reserved=after.get("reserved_bytes.all.current", 0),
-                            allocated=after.get("allocated_bytes.all.current", 0))
-
-            bundle_call = lambda: loaded(batch.img_L, mask=batch.mask,  # noqa: E731
-                                         seed=cfg.seed)
-            stats = {"bundle": alloc_stats(bundle_call),
-                     "live": alloc_stats(lambda: runner.restore_batch(batch, seed=cfg.seed))}
-            log(f"export demo256_inpaint: allocator during one call: {json.dumps(stats)}")
-            # the card's time against the host's, one call of each under
-            # torch.profiler
-            from torch.profiler import ProfilerActivity, profile
-
-            for kind, fn in (("bundle", lambda: loaded(batch.img_L, mask=batch.mask,
-                                                       seed=cfg.seed)),
-                             ("live", lambda: runner.restore_batch(batch, seed=cfg.seed))):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    fn()
-                    torch.cuda.synchronize()
-                table = prof.key_averages().table(sort_by="self_cpu_time_total",
-                                                  row_limit=12)
-                log(f"export demo256_inpaint: torch.profiler, one {kind} call:\n{table}")
         del runner
         torch.cuda.empty_cache()
 
@@ -2827,6 +2608,20 @@ def parallel_nccl(work: str, port: int) -> dict:
         ms_per_nfe=ms, peak_bytes=peak)
 
 
+MERGE = "groupnorm_partial_merge"
+
+
+def split_merges(launches: dict, nfe: int) -> tuple[dict, int]:
+    """``launches`` without the partial statistics' merge launches (the
+    second kernel of a plan with pixel segments, counted on their own), and
+    their number, which must be the same at every NFE and at most one a
+    partial-statistics launch."""
+    merges = launches.get(MERGE, 0)
+    if merges % nfe or merges > launches.get("groupnorm_partial_stats", 0):
+        raise AssertionError(f"{merges} merge launches in {nfe} NFE: {launches}")
+    return {k: v for k, v in launches.items() if k != MERGE}, merges
+
+
 def parallel_phase(dev, root: str) -> dict:
     """Phase parallel (see the module docstring and PARALLEL_*)."""
     import shutil
@@ -2884,7 +2679,8 @@ def parallel_phase(dev, root: str) -> dict:
         nfe = PARALLEL_ITER - 1
         want = {"groupnorm_partial_stats": 65 * nfe, "groupnorm_apply_stats": 65 * nfe,
                 "legacy_qkv_attention": 4 * nfe}
-        if not float(img.mean()) <= FLAGSHIP_IMAGE_MEAN_TOL or sp_launches != want:
+        if (not float(img.mean()) <= FLAGSHIP_IMAGE_MEAN_TOL
+                or split_merges(sp_launches, nfe)[0] != want):
             raise AssertionError(f"demo256 sp=2: images mean {float(img.mean())}, "
                                  f"launches {sp_launches} (expected {want})")
         # demo64, dp x tp x sp
@@ -2934,7 +2730,7 @@ def parallel_phase(dev, root: str) -> dict:
                     if axis == "model" else
                     {"groupnorm_partial_stats": 44 * nfe, "groupnorm_apply_stats": 44 * nfe,
                      "legacy_qkv_attention": nfe})
-            if not err <= DRYRUN_ATOL or dps[0]["launches"] != want:
+            if not err <= DRYRUN_ATOL or split_merges(dps[0]["launches"], nfe)[0] != want:
                 raise AssertionError(f"demo64 DPS_y0 {axis}=2: {err} from unsharded, "
                                      f"launches {dps[0]['launches']} (expected {want})")
         # the DEMO256 bundle under space = 2 (fp32), against the unsharded
@@ -2955,7 +2751,7 @@ def parallel_phase(dev, root: str) -> dict:
         halves = {k: rep.get(k, 0) for k in ("groupnorm_partial_stats",
                                              "groupnorm_apply_stats",
                                              "groupnorm_merge_stats")}
-        if (not err <= DRYRUN_ATOL or space_bundle_launches != want
+        if (not err <= DRYRUN_ATOL or split_merges(space_bundle_launches, nfe)[0] != want
                 or set(halves.values()) != {65} or rep.get("groupnorm_silu", 0)
                 or rep.get("plain_nodes", 0) or not rep.get("collectives")):
             raise AssertionError(f"demo256 space=2 bundle: {err} from unsharded, launches "
@@ -2999,8 +2795,84 @@ def parallel_phase(dev, root: str) -> dict:
                 dps_launches=dps_launches, space_bundle_launches=space_bundle_launches)
 
 
+def formats_phase(dev, root: str) -> dict:
+    """Phase formats: every file of testsets/demo64_formats decoded by the
+    port (no Pillow in this process) against the sha256 digests of Pillow's
+    conversions committed beside them; the host time of decoding the
+    500x375 4:2:0 JPEG; and the demo64 inpaint CLI on the baseline JPEG test
+    set at FORMATS_ITER steps, held to the JAX package's CPU PSNR of the same
+    run and to its launch counts."""
+    import hashlib
+
+    import torch
+
+    from diffpir_tpu_torch.config import load_config
+    from diffpir_tpu_torch.kernels import LAUNCHES
+    from diffpir_tpu_torch.main import main as cli_main
+    from diffpir_tpu_torch.utils.image import list_images
+    from diffpir_tpu_torch.utils.imageio import decode_image
+
+    folder = os.path.join(REPO, "testsets", "demo64_formats")
+    with open(os.path.join(folder, "digests.json")) as f:
+        digests = json.load(f)
+    bad = []
+    for rel, want in sorted(digests.items()):
+        with open(os.path.join(folder, rel), "rb") as f:
+            data = f.read()
+        for mode in ("RGB", "L"):
+            got = hashlib.sha256(decode_image(data, mode).tobytes()).hexdigest()
+            if got != want[mode]:
+                bad.append(f"{rel} {mode}")
+    if "PIL" in sys.modules:
+        raise AssertionError("phase formats ran with Pillow imported")
+    if bad:
+        raise AssertionError(f"decodes that differ from Pillow's digests: {bad}")
+    log(f"formats: {len(digests)} files x RGB, L equal to Pillow's digests (no Pillow "
+        "in this process)")
+
+    with open(os.path.join(folder, FORMATS_BIG_JPEG), "rb") as f:
+        big = f.read()
+    decode_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_image(big)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"formats: {FORMATS_BIG_JPEG} ({len(big)} bytes) decodes in "
+        f"{sorted(decode_ms)[2]:.3f} ms host time (median of 5: "
+        f"{', '.join(f'{t:.3f}' for t in decode_ms)})")
+
+    opt = "configs/demo64_inpaint.yaml"
+    over = {"save_E": False, "save_L": False, "testset_name": FORMATS_TESTSET,
+            "iter_num": FORMATS_ITER}
+    argv = ["--opt", opt, "--no-sweep", "--json"]
+    for k, v in over.items():
+        argv += ["--set", f"{k}={v if isinstance(v, str) else json.dumps(v)}"]
+    cfg = load_config(opt, over)
+    names = list_images(cfg.L_path)
+    forwards = math.ceil(len(names) / cfg.batch_size) * forwards_per_batch(cfg)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = cli_main(argv)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {"groupnorm_silu": 44 * forwards, "legacy_qkv_attention": 1 * forwards}
+    log(f"formats: CLI on {FORMATS_TESTSET} ({len(names)} JPEGs, iter_num "
+        f"{FORMATS_ITER}): PSNR {res['psnr']:.4f} dB (JAX CPU {JAX_FORMATS_PSNR:.4f}), "
+        f"{wall:.3f}s, launches {launches}, {forwards} UNet forwards")
+    if not all(n.endswith(".jpg") for n in names):
+        raise AssertionError(f"the JPEG test set holds {names}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if not abs(res["psnr"] - JAX_FORMATS_PSNR) <= PSNR_TOL_DB:
+        raise AssertionError(f"PSNR {res['psnr']} is not within {PSNR_TOL_DB} dB of the "
+                             f"JAX package's {JAX_FORMATS_PSNR}")
+    return {"files": len(digests), "decode_ms_500x375": sorted(decode_ms)[2],
+            "cli_psnr": res["psnr"], "cli_launches": launches, "cli_seconds": wall}
+
+
 # the phases --only runs: each needs nothing of an earlier phase but the build
-ONLY_PHASES = {"export": export_phase, "parallel": parallel_phase}
+ONLY_PHASES = {"export": export_phase, "parallel": parallel_phase, "formats": formats_phase}
 
 
 def timed_host_ms(fn, iters: int = 5) -> float:
@@ -3371,6 +3243,10 @@ def run(argv: list[str]) -> int:
             raise AssertionError(f"kernel and plain PSNR differ by {gap} dB")
         del kern_runner, plain_runner
 
+    with phase("formats"):
+        formats_out = formats_phase(dev, root)
+        log("formats: " + json.dumps(formats_out))
+
     with phase("tasks"):
         per_forward_calls = {"tiny_demo32": calls32, "demo64_hq": calls64,
                              "demo256": calls256}
@@ -3699,7 +3575,8 @@ def run(argv: list[str]) -> int:
         tot = per_fwd[("demo256 sp2 shard", part)]
         record["kernels"].append({
             "name": name, "route": "cuda",
-            "source": "diffpir_tpu_torch/kernels/csrc/groupnorm.cu",
+            "source": "diffpir_tpu_torch/kernels/csrc/" + (
+                "groupnorm_partial.cu" if part == "partial" else "groupnorm.cu"),
             "replaces": "diffpir_tpu/pallas/groupnorm.py:73",
             "launches": parallel_out["sp_launches"].get(name, 0),
             "launches_per_path": {
@@ -3708,6 +3585,12 @@ def run(argv: list[str]) -> int:
                     parallel_out["space_bundle_launches"].get(name, 0),
                 "parallel demo64 DPS_y0 space=2 rank 0":
                     parallel_out["dps_launches"]["space"].get(name, 0)},
+            **({} if part != "partial" else {"merge_launches_per_path": {
+                "parallel demo256 sp=2 rank 0": parallel_out["sp_launches"].get(MERGE, 0),
+                "parallel demo256 space=2 bundle rank 0":
+                    parallel_out["space_bundle_launches"].get(MERGE, 0),
+                "parallel demo64 DPS_y0 space=2 rank 0":
+                    parallel_out["dps_launches"]["space"].get(MERGE, 0)}}),
             "max_abs_err": max(r[part]["err"] for r in half.values()),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],

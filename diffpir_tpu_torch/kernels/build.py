@@ -46,9 +46,9 @@ _SIGNATURES = {
     # B, HW, C, G, S, slice, rows, eps, silu, is_bf16, stream
     "diffpir_groupnorm_silu": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # x, partial, workspace, counters, B, HW, C, G, S, slice, rows, is_bf16, stream
-    "diffpir_groupnorm_partial_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                        _I, _P],
+    # x, partial, workspace, B, HW, C, G, K (channel chunks), M (pixel
+    # segments), rows, is_bf16, stream
+    "diffpir_groupnorm_partial_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, out, scale, bias, film_scale, film_shift, stats, B, HW, C, G, rows,
     # silu, is_bf16, stream
     "diffpir_groupnorm_apply_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

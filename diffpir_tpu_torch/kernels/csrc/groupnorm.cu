@@ -47,12 +47,11 @@
 // to be a power of two; a vector may span several groups.
 //
 // Split at that seam for an image whose rows are spread over several ranks
-// (spatial parallelism): diffpir_groupnorm_partial_stats is gn_stats whose
-// last block writes the shard's unfinished statistics per (sample, group),
-// bf16 (sum x, sum x^2, n) and fp32 (n, mean, M2), and
-// diffpir_groupnorm_apply_stats is gn_apply from a given (mean, rstd).  The
-// caller gathers the shards' partial results and merges them in rank order
-// between the two (kernels/groupnorm.py), so reruns stay bit-identical.
+// (spatial parallelism): the shard's unfinished statistics come from a kernel
+// of their own (groupnorm_partial.cu), and diffpir_groupnorm_apply_stats is
+// gn_apply from a given (mean, rstd).  The caller gathers the shards' partial
+// results and merges them in rank order between the two
+// (kernels/groupnorm.py), so reruns stay bit-identical.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -117,11 +116,9 @@ __device__ __forceinline__ void chan_merge(float& n, float& mu, float& m2, float
 }
 
 // One launch: per-slice statistics, then (by the last slice block of each
-// sample) the per-sample merge into (mean, rstd) per group, or with kPartial
-// into the sample's unfinished statistics, three floats per group: bf16
-// (sum x, sum x^2, n), fp32 (n, mean, M2).  blockDim = NV * R, NV = C /
-// Vec::N; dynamic shared memory 2 * R * C floats.
-template <typename T, bool kCentred, bool kPartial = false>
+// sample) the per-sample merge into (mean, rstd) per group.  blockDim = NV * R,
+// NV = C / Vec::N; dynamic shared memory 2 * R * C floats.
+template <typename T, bool kCentred>
 __global__ void gn_stats(const T* __restrict__ x, int HW, int C, int G, int S,
                          int slice, int R, float eps, float2* __restrict__ part,
                          float2* __restrict__ stats, int* __restrict__ counters) {
@@ -274,14 +271,6 @@ __global__ void gn_stats(const T* __restrict__ x, int HW, int C, int G, int S,
       }
     }
     const float n_all = (float)HW * (float)cg;
-    if (kPartial) {
-      float* o = reinterpret_cast<float*>(stats) + 3 * ((size_t)b * G + tid);
-      o[0] = kCentred ? n_all : u1;
-      o[1] = kCentred ? u1 : u2;
-      o[2] = kCentred ? u2 : n_all;
-      if (tid == 0) counters[b] = 0;
-      return;
-    }
     float mean, var;
     if (kCentred) {
       mean = u1;
@@ -439,18 +428,6 @@ extern "C" int diffpir_groupnorm_silu(const void* x, void* out,
 namespace {
 
 template <typename T>
-cudaError_t run_partial(const T* x, float* partial, float* ws, int* counters, int B,
-                        int HW, int C, int G, int S, int slice, int R, cudaStream_t st) {
-  constexpr int V = Vec<T>::N;
-  float2* part = reinterpret_cast<float2*>(ws);
-  const int threads = (C / V) * R;
-  const size_t smem = 2 * sizeof(float) * (size_t)R * C;
-  gn_stats<T, sizeof(T) == 4, true><<<dim3(S, B), threads, smem, st>>>(
-      x, HW, C, G, S, slice, R, 0.f, part, reinterpret_cast<float2*>(partial), counters);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t run_apply(const T* x, T* out, const float* scale, const float* bias,
                       const float* fs, const float* fb, const float2* stats, int B, int HW,
                       int C, int G, int R, int silu, cudaStream_t st) {
@@ -472,29 +449,6 @@ bool bad_layout(int B, int HW, int C, int G, int rows, int vec) {
 }
 
 }  // namespace
-
-// The statistics half: partial receives 3*B*G floats, per (sample, group)
-// bf16 (sum x, sum x^2, n) or fp32 (n, mean, M2) of this tensor's pixels.
-// Workspace: 2*B*S*G floats; counters as diffpir_groupnorm_silu's.
-extern "C" int diffpir_groupnorm_partial_stats(const void* x, void* partial,
-                                               void* workspace, void* counters, int B,
-                                               int HW, int C, int G, int S, int slice,
-                                               int rows, int is_bf16, void* stream) {
-  const int vec = is_bf16 ? 8 : 4;
-  if (bad_layout(B, HW, C, G, rows, vec) || S <= 0 || slice <= 0 ||
-      (long long)S * slice < HW || (long long)(S - 1) * slice >= HW ||
-      reinterpret_cast<uintptr_t>(x) % 16)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(workspace);
-  float* pt = static_cast<float*>(partial);
-  int* cnt = static_cast<int*>(counters);
-  if (is_bf16)
-    return (int)run_partial(static_cast<const __nv_bfloat16*>(x), pt, ws, cnt, B, HW, C, G,
-                            S, slice, rows, st);
-  return (int)run_partial(static_cast<const float*>(x), pt, ws, cnt, B, HW, C, G, S, slice,
-                          rows, st);
-}
 
 // The normalising half: stats holds (mean, rstd) per (sample, group), B*G
 // float2; then as diffpir_groupnorm_silu's apply launch (FiLM, SiLU).

@@ -17,6 +17,9 @@ shard's unfinished statistics per (sample, group), bf16 (sum x, sum x^2, n)
 and fp32 (n, mean, M2); the caller gathers the shards' and
 ``merge_partial_stats`` joins them in rank order into (mean, rstd);
 ``groupnorm_apply_stats`` normalises from those.  Each has a plain version.
+The partial statistics are a kernel of their own (``csrc/groupnorm_partial.cu``,
+cut per shape by ``partial_plan``); the apply launch is ``gn_apply`` of
+``csrc/groupnorm.cu``.
 
 Each entry runs the plain version for a CPU tensor and the CUDA kernel for a
 CUDA tensor; it never falls back from one to the other.  Where a gradient is
@@ -44,7 +47,7 @@ direct path, without the operator's dispatch.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +62,7 @@ from diffpir_tpu_torch.kernels._common import (check_aligned,
 __all__ = ["groupnorm_silu", "groupnorm_silu_plain", "GroupNormSiLUFunction",
            "groupnorm_silu_backward", "partition_pixels", "thread_layout",
            "check_inputs", "groupnorm_partial_stats", "groupnorm_partial_stats_plain",
+           "partial_plan", "PartialPlan",
            "PartialStatsFunction", "groupnorm_apply_stats", "groupnorm_apply_stats_plain",
            "ApplyStatsFunction", "merge_partial_stats"]
 
@@ -70,6 +74,11 @@ MAX_STATIC_SMEM = 48 * 1024
 _TARGET_BLOCKS = 528      # ~4 statistics blocks per SM of a 132-SM card: one wave
 _MIN_SLICE = 64           # pixels per statistics block, at least
 _ROW_THREADS = 256        # threads per block to aim for
+# the partial-statistics launch (partial_plan)
+_PARTIAL_ALIGN_BYTES = 5 << 20      # "large": chunks of whole 32-byte sectors
+_PARTIAL_SINGLE_ELEMS = 16 << 10    # a (sample, chunk) one block reads alone
+_PARTIAL_SMALL_THREADS = 128        # threads of such a block, in bf16 (fp32 256)
+_PARTIAL_BLOCKS = 128               # blocks of a segmented launch (large: 256)
 
 # per-(device, stream) ticket counters of the statistics launch; the kernel
 # leaves them at 0, so each buffer is zeroed once, when it is made, and never
@@ -328,7 +337,7 @@ def merge_partial_stats(parts: torch.Tensor, is_bf16: bool,
                         eps: float = 1e-5) -> torch.Tensor:
     """(R, B, G, 3) partial statistics of R shards -> (B, G, 2) (mean, rstd),
     joined in shard order: bf16 by sums, fp32 by Chan's formula, as the
-    kernel's last block joins its slices.  No atomics: reruns are
+    kernel joins its pixel segments.  No atomics: reruns are
     bit-identical, and one shard gives the unsharded plain version's values.
     Host-side PyTorch operations on both devices; in a recorded program the
     operator ``groupnorm_merge_stats`` (its ``rsqrt`` is no plain GroupNorm)."""
@@ -383,25 +392,79 @@ def groupnorm_apply_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torc
     return y.to(dtype)
 
 
+class PartialPlan(NamedTuple):
+    """How the partial-statistics launch cuts a (B, H, W, C) tensor
+    (``csrc/groupnorm_partial.cu``): ``chunks`` channel chunks of whole
+    groups, ``segments`` pixel segments, one block each (more than one:
+    their pairs are merged by a second launch); ``rows`` pixel rows a
+    block."""
+    chunks: int
+    rows: int
+    segments: int = 1
+
+
+def partial_plan(batch: int, hw: int, c: int, itemsize: int,
+                 num_groups: int = 32) -> PartialPlan:
+    """The plan of the partial-statistics launch for one shape, from the
+    sweeps of ``scripts/gn_partial_probe.py`` on the H100 (``PERF.md`` §6):
+    as many channel chunks as the groups and 16-byte vectors allow (chunks
+    of whole 32-byte sectors from ``_PARTIAL_ALIGN_BYTES`` on); one block a
+    (sample, chunk) of ``_PARTIAL_SMALL_THREADS`` threads in bf16 and twice
+    that in fp32 where a (sample, chunk) holds at most
+    ``_PARTIAL_SINGLE_ELEMS`` elements, which then ends with its own
+    reduction; above that, pixel segments of about 256 threads up to
+    ``_PARTIAL_BLOCKS`` blocks (twice as many from ``_PARTIAL_ALIGN_BYTES``
+    on), merged by a second launch, with chunks of whole sectors where that
+    leaves four chunks or more."""
+    vec = 16 // itemsize
+    if c % vec:
+        raise ValueError(f"groupnorm_partial_stats: C={c} is not a multiple of {vec} "
+                         f"(16-byte vectors of {itemsize}-byte elements)")
+    large = batch * hw * c * itemsize >= _PARTIAL_ALIGN_BYTES
+    chunks = 1
+    for k in (8, 4, 2):
+        cc = c // k
+        if (num_groups % k == 0 and c % k == 0 and cc % vec == 0
+                and (not large or (cc * itemsize) % 32 == 0)):
+            chunks = k
+            break
+    nv = c // chunks // vec
+    if nv > 512:
+        raise ValueError(f"groupnorm_partial_stats: C={c} is too wide for one block")
+    if hw * (c // chunks) <= _PARTIAL_SINGLE_ELEMS:
+        return PartialPlan(chunks, max(1, min(_PARTIAL_SMALL_THREADS * 8 // vec // nv, hw)))
+    if chunks >= 8 and (c // chunks * itemsize) % 32 and (c // chunks * 2 * itemsize) % 32 == 0:
+        chunks //= 2
+        nv *= 2
+    blocks = _PARTIAL_BLOCKS * (2 if large else 1)
+    segments = max(2, min(32, blocks // (batch * chunks), hw))
+    rows = max(1, min(256 // nv, -(-hw // segments)))
+    return PartialPlan(chunks, rows, segments)
+
+
 def _launch_partial(x: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """One launch of the partial-statistics kernel; counted in LAUNCHES."""
-    _, _, rows = _check_x(x, num_groups)
+    """One launch of the partial-statistics kernel, counted in LAUNCHES, and
+    with several pixel segments one of its merge, counted under
+    ``groupnorm_partial_merge``."""
+    _check_x(x, num_groups)
 
     from diffpir_tpu_torch.kernels.build import load_library
 
     lib = load_library()
     b, h, w, c = x.shape
-    slices, per = partition_pixels(b, h * w)
+    plan = partial_plan(b, h * w, c, x.element_size(), num_groups)
     dev = x.device
-    stream = current_stream_handle(dev)
-    ws = torch.empty(2 * b * slices * num_groups, dtype=torch.float32, device=dev)
     out = torch.empty((b, num_groups, 3), dtype=torch.float32, device=dev)
+    ws = (torch.empty(2 * b * plan.segments * num_groups, dtype=torch.float32, device=dev)
+          if plan.segments > 1 else None)
     rc = lib.diffpir_groupnorm_partial_stats(
-        x.data_ptr(), out.data_ptr(), ws.data_ptr(), _counters(dev, stream, b).data_ptr(),
-        b, h * w, c, num_groups, slices, per, rows, int(x.dtype == torch.bfloat16),
-        stream)
+        x.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b, h * w, c,
+        num_groups, plan.chunks, plan.segments, plan.rows,
+        int(x.dtype == torch.bfloat16), current_stream_handle(dev))
     raise_on_error("groupnorm_partial_stats", rc)
     LAUNCHES["groupnorm_partial_stats"] += 1
+    if plan.segments > 1:
+        LAUNCHES["groupnorm_partial_merge"] += 1
     return out
 
 

@@ -15,9 +15,10 @@ Endpoints
       ``image`` ((h, w, C) float [0, 1] degraded observation) and optional
       ``kernel`` ((kh, kw) PSF) and ``mask`` ((h, w[, C]) in {0, 1}); the
       answer is an npz archive with ``restored``.
-    - ``Content-Type: image/png``: the degraded PNG (gray, gray+alpha, RGB
-      or RGBA, made RGB as Pillow's ``convert("RGB")`` does: gray repeated,
-      alpha dropped); the answer is the restored PNG.
+    - ``Content-Type: image/png``: the degraded image, in any format
+      ``utils/imageio.py`` reads (as the JAX server hands the body to
+      Pillow), made RGB as Pillow's ``convert("RGB")`` does; the answer is
+      the restored PNG.
     - optional ``?lambda=<float>&zeta=<float>``: this request's operating
       point.
 
@@ -32,7 +33,7 @@ unknown route 404, a body over ``max_body_bytes`` 413 before it is read.
 runs on the CUDA card unless ``--cpu`` is given; ``--bundle`` serves an
 exported bundle (``export.save_bundle``) instead of building a Runner.  ``start_server(service,
 port)`` embeds it and returns the live server (``.shutdown()`` stops it).
-PNGs are decoded and encoded by ``utils/png.py``.
+Images are decoded by ``utils/imageio.py`` and encoded by ``utils/png.py``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from diffpir_tpu_torch.serve import RequestError, RestorationService
-from diffpir_tpu_torch.utils.png import decode_png, encode_png
+from diffpir_tpu_torch.utils.imageio import decode_image
+from diffpir_tpu_torch.utils.png import encode_png
 
 __all__ = ["start_server", "make_handler", "main"]
 
@@ -105,15 +107,15 @@ def _parse_npz(body: bytes):
 
 
 def _parse_png(body: bytes) -> np.ndarray:
-    """PNG bytes -> (h, w, 3) float in [0, 1], made RGB as Pillow's
-    ``convert("RGB")`` does: gray repeated, alpha dropped."""
+    """An ``image/png`` body -> (h, w, 3) float in [0, 1].  As the JAX
+    handler hands the bytes to Pillow, any format that ``utils/imageio.py``
+    reads is decoded (by its first bytes), made RGB as Pillow's
+    ``convert("RGB")`` does."""
     try:
-        u8 = decode_png(body)
+        u8 = decode_image(body, "RGB")
     except ValueError as e:
-        raise RequestError(f"cannot decode the PNG body: {e}") from e
-    gray = u8.shape[2] in (1, 2)
-    rgb = np.repeat(u8[:, :, :1], 3, axis=2) if gray else u8[:, :, :3]
-    return rgb.astype(np.float32) / 255.0
+        raise RequestError(f"cannot decode the image body: {e}") from e
+    return u8.astype(np.float32) / 255.0
 
 
 def _png_bytes(img01: np.ndarray) -> bytes:

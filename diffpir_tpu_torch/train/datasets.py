@@ -6,9 +6,9 @@ Port of ``diffpir_tpu/train/datasets.py`` (reference
 before the first "_", progressive BOX halving then a BICUBIC resize of the
 short side, centre or random crop, optional flip, and an infinite shuffled
 order from ``random.Random``, batched drop-last into NHWC float32 in
-[-1, 1].  Images are read with ``utils/png.py`` and resized with
-``utils/resample.py`` (Pillow's algorithm in numpy): the port does not
-depend on Pillow, so a file that is not a PNG raises ``ValueError``.  Without
+[-1, 1].  Images are read with ``utils/image.py::imread_uint`` (JPEG, PNG,
+GIF and the other formats of ``utils/imageio.py``, as Pillow reads them) and
+resized with ``utils/resample.py`` (Pillow's algorithm in numpy).  Without
 explicit ``shard``/``num_shards`` the shard is this process's rank in an
 initialised ``torch.distributed`` group, else the only one.
 """

@@ -1,9 +1,10 @@
 """Image I/O, dtype conversion and quality metrics for the PyTorch port.
 
 Copy of the parts of ``diffpir_tpu/utils/image.py`` that the inpainting path
-uses, with the same semantics; files are read and written with the
-standard-library PNG codec in ``diffpir_tpu_torch.utils.png`` instead of
-Pillow.
+uses, with the same semantics, without Pillow: files are read by
+``diffpir_tpu_torch.utils.imageio`` (PNG, JPEG, BMP, PPM/PGM/PBM, GIF and
+TIFF, each bit-equal to Pillow's ``convert("RGB")``/``convert("L")``) and
+written as PNG by ``diffpir_tpu_torch.utils.png``.
 
   * ``psnr``        uint8 [0,255] images, border crop, fp64 MSE
   * ``psnr_batch``  mean per-image PSNR over a batch, max_pixel=2 for [-1,1]
@@ -24,7 +25,8 @@ from typing import Optional, Sequence
 import numpy as np
 from scipy.ndimage import correlate1d
 
-from diffpir_tpu_torch.utils.png import read_png, write_png
+from diffpir_tpu_torch.utils.imageio import read_image
+from diffpir_tpu_torch.utils.png import write_png
 
 __all__ = [
     "list_images", "imread_uint", "imsave", "imsave_batch", "uint2single",
@@ -46,28 +48,13 @@ def list_images(root: str) -> list[str]:
     return paths
 
 
-def _to_gray(img: np.ndarray) -> np.ndarray:
-    # Pillow's RGB -> L conversion in fixed point (ITU-R 601-2 luma)
-    rgb = img[:, :, :3].astype(np.uint32)
-    y = rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000
-    return (y >> 16).astype(np.uint8)
-
-
 def imread_uint(path: str, n_channels: int = 3) -> np.ndarray:
-    """Read a PNG as uint8 HxWxC: RGB for 3 channels, gray for 1.
-
-    Alpha is dropped and gray is replicated to RGB, as Pillow's
-    ``convert("RGB")``/``convert("L")`` do."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"only PNG images are supported, got {path!r}")
-    img = read_png(path)
-    c = img.shape[2]
+    """Read an image as uint8 HxWxC: RGB for 3 channels, gray for 1, as
+    Pillow's ``Image.open(path).convert("RGB")``/``convert("L")`` (the
+    format from the file's first bytes, not its extension)."""
     if n_channels == 1:
-        gray = img[:, :, 0] if c <= 2 else _to_gray(img)
-        return gray[:, :, None]
-    if c <= 2:
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, :3])
+        return read_image(path, "L")[:, :, None]
+    return read_image(path, "RGB")
 
 
 def imsave(img: np.ndarray, path: str) -> None:

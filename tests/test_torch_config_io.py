@@ -19,7 +19,7 @@ from diffpir_tpu.utils import image as jim
 from diffpir_tpu_torch import config as tconfig
 from diffpir_tpu_torch import data as tdata
 from diffpir_tpu_torch.utils import image as tim
-from diffpir_tpu_torch.utils import png
+from diffpir_tpu_torch.utils import imageio, png
 from tests.conftest import REFERENCE_ROOT
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,9 +124,13 @@ def _encode_with_filters(img: np.ndarray, colour: int) -> bytes:
 def test_png_decodes_testsets_as_pillow(path):
     ours = png.read_png(path)
     with Image.open(path) as im:
-        ref = np.asarray(im)
-    np.testing.assert_array_equal(ours.reshape(ref.shape), ref)
-    back = png.decode_png(png.encode_png(ours))
+        ref = np.asarray(im.convert("RGB"))
+        gray = np.asarray(im.convert("L"))
+    np.testing.assert_array_equal(ours, ref)
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(imageio.decode_image(f.read(), "L"), gray)
+    mode, back, _ = png.decode_png(png.encode_png(ours))
+    assert mode == "RGB"
     np.testing.assert_array_equal(back, ours)
     with Image.open(io.BytesIO(png.encode_png(ours))) as im:
         np.testing.assert_array_equal(np.asarray(im), ref)
@@ -139,10 +143,15 @@ def test_png_all_filters_and_colour_types(colour, channels, mode):
     img = rng.integers(0, 256, (23, 17, channels), dtype=np.uint8)
     img[5:12] = img[5:6]  # runs of equal rows and pixels exercise Up/Paeth ties
     data = _encode_with_filters(img if channels > 1 else img[:, :, 0], colour)
-    np.testing.assert_array_equal(png.decode_png(data), img)
+    got_mode, pixels, _ = png.decode_png(data)   # as Pillow opens it, alpha dropped
+    assert got_mode == ("L" if channels <= 2 else "RGB")
+    np.testing.assert_array_equal(pixels, img[:, :, 0] if channels <= 2 else img[:, :, :3])
     with Image.open(io.BytesIO(data)) as im:
         assert im.mode == mode
         np.testing.assert_array_equal(np.asarray(im).reshape(img.shape), img)
+        for target in ("RGB", "L"):
+            np.testing.assert_array_equal(imageio.decode_image(data, target),
+                                          np.asarray(im.convert(target)))
 
 
 @pytest.mark.parametrize("mode,n_channels", [
@@ -171,13 +180,13 @@ def _png(width, height, depth, colour, interlace, raw, extra=b""):
 
 def test_png_rejects_what_it_does_not_decode(tmp_path):
     raw = bytes(2 * (1 + 2 * 3))
-    assert png.decode_png(_png(2, 2, 8, 2, 0, raw)).shape == (2, 2, 3)
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(_png(2, 2, 8, 2, 1, raw))
-    with pytest.raises(ValueError, match="bit depth 16"):
-        png.decode_png(_png(2, 2, 16, 2, 0, bytes(2 * (1 + 2 * 6))))
-    with pytest.raises(ValueError, match="palette"):
-        png.decode_png(_png(2, 2, 8, 3, 0, bytes(2 * 3), _chunk(b"PLTE", bytes(3))))
+    assert png.decode_png(_png(2, 2, 8, 2, 0, raw))[1].shape == (2, 2, 3)
+    with pytest.raises(ValueError, match="bit depth 16, colour type 3"):
+        png.decode_png(_png(2, 2, 16, 3, 0, bytes(2 * 5), _chunk(b"PLTE", bytes(3))))
+    with pytest.raises(ValueError, match="palette PNG without a PLTE"):
+        png.decode_png(_png(2, 2, 8, 3, 0, bytes(2 * 3)))
+    with pytest.raises(ValueError, match="interlace method"):
+        png.decode_png(_png(2, 2, 8, 2, 2, raw))
     with pytest.raises(ValueError, match="filter type 7"):
         png.decode_png(_png(2, 2, 8, 2, 0, b"\x07" + raw[1:]))
     with pytest.raises(ValueError, match="wrong length"):
@@ -187,10 +196,44 @@ def test_png_rejects_what_it_does_not_decode(tmp_path):
         png.decode_png(good[:20] + bytes([good[20] ^ 1]) + good[21:])
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"GIF89a" + good[6:])
-    path = str(tmp_path / "p.png")
+    path = str(tmp_path / "p.gif")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).convert("P").save(path)
-    with pytest.raises(ValueError, match="palette"):
+    with pytest.raises(ValueError, match="not a PNG"):
         png.read_png(path)
+
+
+@pytest.mark.parametrize("case", ["interlaced", "16bit", "palette", "pillow_palette"])
+def test_png_decodes_what_it_once_refused_as_pillow(tmp_path, case):
+    """Adam7 interlacing, 16-bit samples and palettes, which the port's PNG
+    reader once refused: now as Pillow reads them."""
+    rng = np.random.default_rng(len(case))
+    if case == "interlaced":
+        rows = rng.integers(0, 256, (5, 7 * 3), dtype=np.uint8)
+        # Adam7 of a 5x7 RGB image: each pass's pixels, filter 0 on every row
+        img = rows.reshape(5, 7, 3)
+        raw = b""
+        for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+                               (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)):
+            sub = img[y0::dy, x0::dx]
+            if sub.size:
+                raw += b"".join(b"\x00" + r.tobytes() for r in sub.reshape(sub.shape[0], -1))
+        data = _png(7, 5, 8, 2, 1, raw)
+    elif case == "16bit":
+        v = rng.integers(0, 65536, (3, 4 * 3)).astype(">u2")
+        data = _png(4, 3, 16, 2, 0, b"".join(b"\x00" + r.tobytes() for r in v))
+    elif case == "palette":
+        idx = rng.integers(0, 3, (2, 2), dtype=np.uint8)
+        data = _png(2, 2, 8, 3, 0, b"".join(b"\x00" + r.tobytes() for r in idx),
+                    _chunk(b"PLTE", rng.integers(0, 256, 9, dtype=np.uint8).tobytes()))
+    else:
+        path = str(tmp_path / "p.png")
+        Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).convert("P").save(path)
+        with open(path, "rb") as f:
+            data = f.read()
+    for target in ("RGB", "L"):
+        with Image.open(io.BytesIO(data)) as im:
+            np.testing.assert_array_equal(imageio.decode_image(data, target),
+                                          np.asarray(im.convert(target)))
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 BICUBIC resizes reproduced in numpy (``utils/resample.py``, held to Pillow
 itself), and ``load_data``'s batches bit-equal to JAX's on a folder of PNGs
 written by ``utils/png.py`` (halving, bicubic scaling, random crop and flip,
-class labels, shards); a file that is not a PNG raises."""
+class labels, shards), and on a folder of JPEGs, GIFs and PNGs written by
+Pillow; a file that cannot be decoded raises, naming its format."""
 
 import os
 
@@ -95,11 +96,39 @@ def test_load_data_equals_jax(image_dir, opts):
         jdata.list_image_files_recursively(image_dir)
 
 
+@pytest.mark.parametrize("opts", [dict(), dict(class_cond=True, random_crop=True, seed=2)],
+                         ids=["default", "classes_crop"])
+def test_load_data_reads_jpeg_and_gif_as_jax(tmp_path, opts):
+    """A training folder of JPEGs (baseline and progressive, 4:2:0 and
+    4:4:4, gray), GIFs and a PNG, which the JAX loader reads through
+    Pillow: the same batches."""
+    rng = np.random.default_rng(4)
+    writers = [("jpg", dict(quality=85)), ("jpeg", dict(quality=70, progressive=True)),
+               ("gif", {}), ("jpg", dict(quality=95, subsampling=0)), ("png", {}),
+               ("jpg", dict(quality=90, gray=True))]
+    for i, (ext, kw) in enumerate(writers):
+        img = Image.fromarray(_image(rng, 20 + 7 * i, 41 - 3 * i, smooth=i % 2 == 1))
+        if kw.pop("gray", False):
+            img = img.convert("L")
+        img = img.quantize(64) if ext == "gif" else img
+        img.save(tmp_path / f"{'cat' if i % 2 else 'dog'}_{i}.{ext}", **kw)
+    kw = dict(data_dir=str(tmp_path), batch_size=2, image_size=16, shard=0, num_shards=1,
+              **opts)
+    ref, got = jdata.load_data(**kw), tdata.load_data(**kw)
+    for _ in range(4):
+        (ri, rl), (gi, gl) = next(ref), next(got)
+        np.testing.assert_array_equal(gi, ri)
+        if rl is None:
+            assert gl is None
+        else:
+            np.testing.assert_array_equal(gl, rl)
+
+
 def test_load_data_refuses_what_it_cannot_read(tmp_path):
     write_png(np.zeros((20, 20, 3), np.uint8), str(tmp_path / "a.png"))
     with open(tmp_path / "b.jpg", "wb") as f:
         f.write(b"\xff\xd8\xff\xe0 not decoded here")
-    with pytest.raises(ValueError, match="PNG"):
+    with pytest.raises(ValueError, match="corrupt JPEG"):
         next(tdata.load_data(data_dir=str(tmp_path), batch_size=2, image_size=8,
                              deterministic=True, random_flip=False))
     with pytest.raises(ValueError, match="batch_size"):
